@@ -1,0 +1,43 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every entry point has a plain C interface (bound from Python with ctypes),
+// launches on the caller's stream, allocates nothing, and returns the
+// cudaError_t of its launch.  Small constant tables (FIR taps, model
+// constants) arrive as host pointers and are copied into structs passed by
+// value, so a launch carries everything it needs.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstring>
+
+namespace ce {
+
+constexpr int kThreads = 256;
+
+template <int N>
+struct Floats {
+  float v[N];
+};
+
+template <int N>
+inline Floats<N> load_floats(const float* host) {
+  Floats<N> f;
+  std::memcpy(f.v, host, sizeof(f.v));
+  return f;
+}
+
+// Sum of one value over the block; the result is valid in thread 0.
+// `scratch` holds one float per warp.
+__device__ inline float block_sum(float v, float* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < kThreads / 32; ++i) s += scratch[i];
+  __syncthreads();
+  return s;
+}
+
+}  // namespace ce

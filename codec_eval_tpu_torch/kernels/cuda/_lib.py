@@ -1,0 +1,147 @@
+"""Build and load the hand-written Hopper kernels.
+
+At first use, ``nvcc`` compiles every ``codec_eval_tpu_torch/csrc/*.cu`` into
+one shared library with a plain C interface under ``build/kernels/`` at the
+repository root.  The library's name carries a hash of the sources and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+It is bound with ``ctypes``: every pointer and the CUDA stream travel as
+``c_void_p``, every size as ``c_int``, and every entry point returns the
+``cudaError_t`` of its launch, which ``check`` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE.parent / "build" / "kernels"
+
+#: ``-fmad=false`` keeps every multiply and add separately rounded, as
+#: PyTorch's elementwise ops are, so a kernel's stencil arithmetic matches
+#: its plain version bit for bit wherever the summation order is the same.
+#: The kernels are bound by memory traffic, not by FMA throughput.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+
+#: C entry points: name -> argtypes.  Each returns ``int`` (cudaError_t).
+SIGNATURES = {
+    # x1, mu1, s11, x2, partial, n, h, w, taps, stream
+    "ce_scale_features": (P, P, P, P, P, I, I, I, P, P),
+    # lin, recip, out, b, h, w, consts, taps, stream
+    "ce_opsin_xyb": (P, P, P, I, I, I, P, P, P),
+    # xyb, lf, recip332, recip156, out, b, h, w, consts, taps332, taps156, stream
+    "ce_bands": (P, P, P, P, P, I, I, I, P, P, P, P),
+    # diffs, out, b, h, w, weights, geometry, nlines_full, nlines_lf, stream
+    "ce_malta_ac": (P, P, I, I, I, P, P, I, I, P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if not candidate.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(candidate)
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libcodec_eval_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for their hash exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    # Compile to a private name, then rename: a concurrent build never sees
+    # a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's signature."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {rc}")
+
+
+def require_cuda(name: str, t: torch.Tensor, shape: tuple, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape`` (``None`` entries match any size)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(
+        s is not None and s != d for s, d in zip(shape, t.shape)
+    ):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def ptr(t) -> int:
+    """Device pointer of a tensor, or host address of a numpy array."""
+    if isinstance(t, torch.Tensor):
+        return t.data_ptr()
+    return t.ctypes.data
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

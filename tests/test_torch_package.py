@@ -1,0 +1,200 @@
+"""Package-level checks of the PyTorch port ``codec_eval_tpu_torch``.
+
+- (a) no module of the port imports JAX or the JAX package.  This is a static
+  check: the test process has JAX loaded already (``tests/conftest.py``), so
+  ``sys.modules`` cannot tell who imported it;
+- (b) the constant tables the port copied equal the JAX package's exactly;
+- (c) on CPU tensors no kernel wrapper launches its kernel;
+- (d) asking for CUDA without a card is an error, never a CPU fallback, and a
+  kernel wrapper given a tensor on any other device than the CPU raises
+  unless it is a CUDA tensor.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import codec_eval_tpu_torch as port
+from codec_eval_tpu.kernels import butteraugli as jba
+from codec_eval_tpu.kernels import dssim as jd
+from codec_eval_tpu.kernels import ssimulacra2_weights as jw
+from codec_eval_tpu_torch.kernels import butteraugli as tba
+from codec_eval_tpu_torch.kernels import dssim as td
+from codec_eval_tpu_torch.kernels import ssimulacra2_weights as tw
+from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, _lib
+from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
+from codec_eval_tpu_torch.kernels.cuda import malta as tml
+from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
+
+PACKAGE = Path(port.__file__).parent
+REPO = PACKAGE.parent
+FORBIDDEN = ("jax", "jaxlib", "codec_eval_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """True for ``jax``, ``jax.numpy``, ``codec_eval_tpu.x`` and the like,
+    matched by whole dotted name, so ``codec_eval_tpu_torch`` passes."""
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_forbidden_matches_whole_names():
+    assert _forbidden("jax") and _forbidden("jax.numpy") and _forbidden("jaxlib")
+    assert _forbidden("codec_eval_tpu") and _forbidden("codec_eval_tpu.engine.scoring")
+    assert not _forbidden("codec_eval_tpu_torch")
+    assert not _forbidden("codec_eval_tpu_torch.kernels") and not _forbidden("jaxtyping")
+
+
+def test_port_imports_no_jax():
+    files = sorted(PACKAGE.rglob("*.py"))
+    assert len(files) > 15
+    bad = [(str(f.relative_to(PACKAGE)), m) for f in files for m in _imports(f) if _forbidden(m)]
+    assert bad == []
+
+
+def test_chip_smoke_imports_no_jax():
+    script = REPO / "chip_smoke.py"
+    assert [m for m in _imports(script) if _forbidden(m)] == []
+
+
+def test_ssimulacra2_weights_equal_jax():
+    np.testing.assert_array_equal(tw.WEIGHTS_V21, jw.WEIGHTS_V21)
+    assert tw.WEIGHTS_V21.dtype == jw.WEIGHTS_V21.dtype
+    for name in ("SCALE_FACTOR", "CUBIC_A", "CUBIC_B", "CUBIC_C", "POWER", "APPROX_ENTRIES"):
+        assert getattr(tw, name) == getattr(jw, name), name
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["_OPSIN_CONSTS", "_BAND_CONSTS", "_MALTA_CALLS", "_MALTA_LINES_FULL", "_MALTA_LINES_LF",
+     "_WMUL", "_MASKY", "_MASKDCY", "_MASK_GLOBAL_SCALE", "SIGMA_LF", "SIGMA_MASK"],
+)
+def test_butteraugli_tables_equal_jax(name):
+    assert getattr(tba, name) == getattr(jba, name)
+
+
+def test_kernel_blur_sigmas_equal_jax():
+    assert (tfs.SIGMA_SURROUND, tfs.SIGMA_MF, tfs.SIGMA_UHF) == (
+        jba.SIGMA_SURROUND, jba.SIGMA_MF, jba.SIGMA_UHF
+    )
+    assert tsf.SIGMA == 1.5
+
+
+def test_butteraugli_params_equal_jax():
+    p, q = tba.ButteraugliParams(), jba.ButteraugliParams.default()
+    assert (p.hf_asymmetry, p.xmul, p.intensity_target) == (
+        q.hf_asymmetry, q.xmul, q.intensity_target
+    )
+
+
+def test_dssim_constants_equal_jax():
+    for name in ("SCALE_WEIGHTS", "CHROMA_WEIGHT", "C1", "C2", "_BLUR_TAPS", "_EPSILON",
+                 "_KAPPA_116"):
+        assert getattr(td, name) == getattr(jd, name), name
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrapper_names_its_source_and_the_pallas_kernel(name):
+    fn = WRAPPERS[name]
+    assert (REPO / fn.source).is_file() and fn.source.endswith(".cu")
+    path, line = fn.replaces.split(":")
+    text = (REPO / path).read_text().splitlines()[int(line) - 1]
+    assert text.startswith("def ") and text.split("(")[0].endswith("_pallas_batch" if name ==
+        "scale_features" else "_pallas")
+
+
+def _gradient(h, w):
+    y, x = np.mgrid[0:h, 0:w]
+    return np.stack([x * 255 // w, y * 255 // h, (x + y) * 255 // (h + w)], -1).astype(np.uint8)
+
+
+def test_cpu_scoring_launches_no_kernel():
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    ref = _gradient(24, 32)
+    cands = np.stack([ref // 2 + 10, ref])
+    res = port.BatchScorer(port.MetricConfig.all(), device="cpu").score_batch(ref, cands)
+    assert res[1].ssimulacra2 == 100.0 and res[1].butteraugli == 0.0
+    assert np.isfinite(res[0].butteraugli) and res[0].butteraugli > 0.0
+    assert [fn.launches for fn in WRAPPERS.values()] == [0, 0, 0, 0]
+
+
+def test_cuda_device_without_card_is_an_error(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.BatchScorer(port.MetricConfig.all(), device="cuda")
+    config = port.EvalConfig.builder().report_dir("unused").build()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.EvalSession(config, device="cuda")
+    with pytest.raises(ValueError, match="unsupported device"):
+        port.BatchScorer(port.MetricConfig.all(), device="meta")
+
+
+def test_wrappers_refuse_other_devices():
+    """A wrapper takes its plain version only for CPU tensors; anything else
+    must be a CUDA tensor, or it raises before touching the library."""
+    m = torch.device("meta")
+    cases = [
+        lambda: tsf.scale_features_batch(
+            *(torch.empty(3, 16, 16, device=m) for _ in range(3)),
+            torch.empty(2, 3, 16, 16, device=m),
+        ),
+        lambda: tfs.opsin_xyb_batch(torch.empty(2, 3, 16, 16, device=m), tba._OPSIN_CONSTS),
+        lambda: tfs.bands_batch(
+            torch.empty(2, 3, 16, 16, device=m), torch.empty(2, 3, 16, 16, device=m),
+            tba._BAND_CONSTS,
+        ),
+        lambda: tml.malta_ac_batch(
+            torch.empty(2, 6, 16, 16, device=m), tba._MALTA_LINES_FULL, tba._MALTA_LINES_LF
+        ),
+    ]
+    for case in cases:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            case()
+    assert [fn.launches for fn in WRAPPERS.values()] == [0, 0, 0, 0]
+
+
+def test_require_cuda_checks_dtype_shape_and_layout():
+    t = torch.empty(2, 3, 4, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        _lib.require_cuda("t", t, (None, 3, None, None))
+    # The remaining checks run on tensors that claim a CUDA device.
+    class Fake:
+        device = torch.device("cuda")
+        dtype = torch.float64
+        shape = (2, 3, 4, 5)
+
+        def dim(self):
+            return 4
+
+        def is_contiguous(self):
+            return False
+
+    with pytest.raises(TypeError, match="float32"):
+        _lib.require_cuda("t", Fake(), (None, 3, None, None))
+    Fake.dtype = torch.float32
+    with pytest.raises(ValueError, match="shape"):
+        _lib.require_cuda("t", Fake(), (None, 6, None, None))
+    with pytest.raises(ValueError, match="contiguous"):
+        _lib.require_cuda("t", Fake(), (None, 3, None, None))
+
+
+def test_build_names_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
+    names = {p.name for p in _lib.sources()}
+    assert {"scale_features.cu", "freqsep.cu", "malta.cu"} <= names
+    first = _lib.library_path()
+    assert first == _lib.library_path() and first.parent == _lib.BUILD_DIR
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _lib._nvcc()
