@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``codec_eval_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the smoke run
+    python3 chip_smoke.py --profile    # and a profile of one batch per size
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` and then runs five phases, each failing loudly:
+``nvcc`` (one process per source, in parallel) and then runs six phases,
+each failing loudly:
 
 1. device: the card's name and power limit, and the kernels' build time;
-2. every kernel (K1-K4) against its plain PyTorch version on the card, on
-   the inputs the 512 px all-metric sweep gives it (25 candidates, K1 at all
-   six SSIMULACRA2 scales), and at two ragged shapes;
-3. the slice: an ``EvalSession(MetricConfig.all(), device="cuda")`` sweep of
-   a 512x512 image through a host block-DCT codec at 25 quality levels,
-   with the reports written, every kernel's launch counter read around it,
-   three of its candidates rescored on the CPU (plain versions) and one
-   ``score_batch`` of 25 timed;
+2. K1-K4 against their plain PyTorch versions on the card, on the inputs the
+   512 px all-metric sweep gives them (25 candidates and the reference at
+   512 and 256 px, K1 at all six SSIMULACRA2 scales), and all six kernels
+   at two ragged shapes (K6 at sigma 2.7 and 7.16);
+3. the 512 px slice: an ``EvalSession(MetricConfig.all(), device="cuda")``
+   sweep of a 512x512 image through a host block-DCT codec at 25 quality
+   levels, with the reports written, every kernel's launch counter read
+   around it (K1-K4 launch, K5 and K6 must not), three candidates rescored
+   on the host (plain versions) and one ``score_batch`` of 25 timed;
 4. the committed libjxl Butteraugli oracle scored on the card;
-5. each kernel's time against its plain version's.
+5. the 2048 px slice, the CLIC-class size: an ``EvalSession`` with no
+   ``device`` (the card is the default) sweeps a 2048x2048 image at
+   qualities 50..95 step 5, with every kernel launching (K4 on the 1024 px
+   half-resolution pass), two candidates rescored on the host, one
+   ``score_batch`` of 10 timed with its peak device memory; then every
+   kernel against its plain version on that sweep's inputs (K1 at 2048 down
+   to 64 px; K2, K3 and K6 at 2048 and 1024; K4 at 1024; K5 at 2048);
+6. each kernel's time against its plain version's and its bound, on both
+   paths for K1-K4; for K6 the dense operator product it replaces; and the
+   whole diffmap at 2048 and 1024 px both ways, through K5 and through
+   the prologue, K4 and the eager epilogue.
 
 The last two lines of standard output are a JSON summary of the kernels and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints neither.
+``{"ok": true, "device": {...}}``, with the card's ``nvidia-smi`` line just
+before them.  Without a CUDA device, or outside a checkout of the
+repository, it exits non-zero and prints none of them.
 """
 
 from __future__ import annotations
@@ -32,7 +46,9 @@ import sys
 import tempfile
 import time
 import zlib
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -41,9 +57,35 @@ ROOT = Path(__file__).resolve().parent
 SIZE = 512
 SEED = 20240607
 QUALITIES = [5] + list(range(10, 100, 4)) + [100]  # 25 levels, with 5, 50 and 100
+# The CLIC2025 calibration size and ladder of the JAX package's bench.py.
+BIG = 2048
+BIG_QUALITIES = list(range(50, 100, 5))
+BIG_PICKS = [50, 95]  # rescored on the host
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # f32 stencils: same arithmetic, same order
 K1_TOL = dict(rtol=1e-4, atol=1e-6)  # partial sums taken in another order
 SCORE_RTOL = {"ssimulacra2": 1e-4, "dssim": 1e-4, "psnr": 1e-4, "butteraugli": 5e-4}
+
+# Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per output pixel that each kernel's function needs, whatever
+# the kernel itself does (a multiply or an add counts one; selects,
+# compares, abs and negation count nothing; the arithmetic of data-dependent
+# branches is left out, so each count is a floor).
+# K1, per channel: the products x2*x2 and x1*x2 (2); three 15-tap blurs both
+# ways, 6 x (15 mul + 14 add); the SSIM map (16); the edge maps (two
+# differences, two +1, a quotient, a -1: 6); the squares and fourth powers
+# (6) and the six sums (6).
+K1_OPS = 2 + 6 * (15 + 14) + 16 + 6 + 6 + 6
+K2_OPS = 164  # three 5+5-tap blurs, two absorbance mixes, FastLog2f, sensitivity
+K3_OPS = 270  # three 15+15-tap and two 7+7-tap blurs, suppression, range shaping
+# K5, per channel: the diff, |l0|+|l1|, 0.5x, +n1, two quotients, a product,
+# the two thresholds and the final add (the impact branch's two left out).
+PROLOGUE_OPS = 10
+# K5, per pixel: the asymmetric L2 twice (7 each) and its two adds, the MF
+# X/Y terms (4 each), MF B (3), + dac, the three LF terms and their sum (12),
+# the mask combine (6), the sqrt.
+EPILOGUE_OPS = 2 * 7 + 2 + 2 * 4 + 3 + 1 + 12 + 6 + 1
 
 # ---------------------------------------------------------------- the codec
 
@@ -147,6 +189,22 @@ def make_image(size: int, seed: int) -> np.ndarray:
 # ------------------------------------------------------------------ helpers
 
 
+@dataclass
+class Check:
+    """One kernel held against its plain version at a path's shapes, and
+    what phase 6 needs to time and bound it: the bytes its function must
+    move, the operations it must do, and a PyTorch call that computes the
+    same function, where there is one."""
+
+    err: float
+    kernel: Callable
+    plain: Callable
+    nbytes: float
+    ops: float
+    shapes: str
+    library: Optional[Callable] = None
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -185,13 +243,69 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float) -> tuple:
+    """The least time (ms) the card could take, and what sets it: the bytes
+    over the memory rate or the f32 operations over the peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def malta_ops(lines_full, lines_lf) -> int:
+    """Operations per pixel of the six Malta sweeps: each line's samples
+    added, the sum squared, weighted and accumulated, on two full-pattern
+    and four lf-pattern planes, then the six plane sums."""
+    def per_plane(lines):
+        return sum(len(line) - 1 + 3 for _weight, line in lines)
+
+    return 2 * per_plane(lines_full) + 4 * per_plane(lines_lf) + 6
+
+
+def blur_ops(sigma: float) -> int:
+    """Operations per pixel of K6: two FIR passes and the renormalization."""
+    from codec_eval_tpu_torch.kernels.cuda.freqsep import _taps
+
+    return 2 * (2 * len(_taps(sigma)) - 1) + 1
+
+
+def reset_launches() -> None:
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
 # ------------------------------------------------------------------- phases
 
 
+def held(label: str, kernel: Callable, plain: Callable, cases: list, tol: dict):
+    """Each (case, args) of ``cases`` through the kernel and its plain
+    version; the worst max |err| and the first case's kernel output."""
+    worst, first = 0.0, None
+    for case, args in cases:
+        got = kernel(*args)
+        worst = max(worst, compare(f"{label} {case}", got, plain(*args), **tol))
+        first = got if first is None else first
+    return worst, first
+
+
 def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device) -> dict:
-    """Each kernel against its plain version at the main path's shapes.
-    Returns, per kernel, its max abs error and the (kernel, plain) calls to
-    time in phase 5."""
+    """K1-K4 against their plain versions on every input that a sweep of
+    ``ref_u8`` gives them: K2 and K3 on the candidates and on the reference
+    at full and half resolution, K4 at each resolution whose diffmap does
+    not take K5, K1 at all six SSIMULACRA2 scales.  Each check is timed and
+    bounded on the candidates at the first resolution it runs at."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
     from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
@@ -201,41 +315,64 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
     ref = torch.from_numpy(ref_u8).to(device)
     lin = srgb_u8_to_linear(planar)
     lin_ref = torch.movedim(srgb_u8_to_linear(ref), -1, 0).contiguous()
-    it = float(np.float32(ba.ButteraugliParams().intensity_target))
+    params = ba.ButteraugliParams()
+    it = float(np.float32(params.intensity_target))
+    pre_ba = ba.precompute_butteraugli_reference(lin_ref)
+    lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
+    b, _, h, w = planar.shape
     out = {}
 
+    # The inputs of K2, K3 and K4 at each resolution of the Butteraugli pass.
+    k2, k3, k4 = [], [], []
+    for cand, ref_lin, pi0 in (
+        (lin, lin_ref, pre_ba.pi0_full),
+        (ba._subsample2x(lin), ba._subsample2x(lin_ref), pre_ba.pi0_sub),
+    ):
+        rh, rw = cand.shape[-2:]
+        for who, x in ((f"B={b}", cand), ("reference", ref_lin[None])):
+            scaled = (x * it).contiguous()
+            xyb = freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS)
+            lf = ba._blur(xyb, ba.SIGMA_LF).contiguous()
+            k2.append((f"{who} {rh}x{rw}", (scaled, ba._OPSIN_CONSTS)))
+            k3.append((f"{who} {rh}x{rw}", (xyb, lf, ba._BAND_CONSTS)))
+        if not ba._fused_diffmap_ok(rh, rw):
+            pi1 = ba._psycho_batch(k2[-2][1][0])
+            diffs = ba._malta_diffs_stack(pi0, pi1, params.hf_asymmetry).contiguous()
+            k4.append((f"B={b} {rh}x{rw}", (diffs, *lines)))
+            del pi1
+
     # K2: opsin dynamics.
-    scaled = (lin * it).contiguous()
-    got = freqsep.opsin_xyb_batch(scaled, ba._OPSIN_CONSTS)
-    want = freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS)
-    out["opsin_xyb"] = (
-        compare("K2 opsin_xyb", got, want, **KERNEL_TOL),
+    err, got = held("K2 opsin_xyb", freqsep.opsin_xyb_batch, freqsep.opsin_xyb_plain, k2,
+                    KERNEL_TOL)
+    scaled = k2[0][1][0]
+    out["opsin_xyb"] = Check(
+        err,
         lambda: freqsep.opsin_xyb_batch(scaled, ba._OPSIN_CONSTS),
         lambda: freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS),
+        2 * nbytes(scaled) + h * w * 4, K2_OPS * b * h * w, f"{w} px, B={b}",
     )
 
     # K3: bands, on the plain XYB and its LF blur.
-    xyb = want
-    lf = ba._blur(xyb, ba.SIGMA_LF).contiguous()
-    got = freqsep.bands_batch(xyb, lf, ba._BAND_CONSTS)
-    want = freqsep.bands_plain(xyb, lf, ba._BAND_CONSTS)
-    out["bands"] = (
-        compare("K3 bands", got, want, **KERNEL_TOL),
+    err, got = held("K3 bands", freqsep.bands_batch, freqsep.bands_plain, k3, KERNEL_TOL)
+    xyb, lf, _ = k3[0][1]
+    out["bands"] = Check(
+        err,
         lambda: freqsep.bands_batch(xyb, lf, ba._BAND_CONSTS),
         lambda: freqsep.bands_plain(xyb, lf, ba._BAND_CONSTS),
+        nbytes(xyb, lf, got) + 2 * h * w * 4, K3_OPS * b * h * w, f"{w} px, B={b}",
     )
 
     # K4: Malta, on the diff planes of the candidates against the reference.
-    pi0 = ba.precompute_butteraugli_reference(lin_ref).pi0_full
-    diffs = ba._malta_diffs_stack(pi0, ba._psycho_batch(scaled), 0.8).contiguous()
-    lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
-    got = malta.malta_ac_batch(diffs, *lines)
-    want = malta.malta_ac_plain(diffs, *lines)
-    out["malta_ac"] = (
-        compare("K4 malta_ac", got, want, **KERNEL_TOL),
+    err, got = held("K4 malta_ac", malta.malta_ac_batch, malta.malta_ac_plain, k4, KERNEL_TOL)
+    diffs = k4[0][1][0]
+    dh, dw = diffs.shape[-2:]
+    out["malta_ac"] = Check(
+        err,
         lambda: malta.malta_ac_batch(diffs, *lines),
         lambda: malta.malta_ac_plain(diffs, *lines),
+        nbytes(diffs, got), malta_ops(*lines) * b * dh * dw, f"{dw} px, B={b}",
     )
+    del got
 
     # K1: SSIMULACRA2 features, at every scale of the pyramid.
     pre = s2.precompute_reference(ref, lin_planar=lin_ref)
@@ -245,16 +382,21 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
             level = s2.downscale_by_2(level)
         xyb2.append(s2._to_positive_xyb(level).contiguous())
     args = [(pre.xyb[s], pre.mu[s], pre.sqblur[s], xyb2[s]) for s in range(s2.NUM_SCALES)]
-    worst = 0.0
-    for s, a in enumerate(args):
+    worst, moved, ops = 0.0, 0, 0
+    tw, th = scale_features.TILE
+    for a in args:
         got = scale_features.scale_features_batch(*a)
         want = scale_features.scale_features_plain(*a)
-        side = a[3].shape[-1]
-        worst = max(worst, compare(f"K1 scale_features {side}px", got, want, **K1_TOL))
-    out["scale_features"] = (
+        n, _, sh, sw = a[3].shape
+        worst = max(worst, compare(f"K1 scale_features {sw}px", got, want, **K1_TOL))
+        partials = n * 3 * -(-sh // th) * -(-sw // tw) * 6 * 4
+        moved += nbytes(*a) + partials
+        ops += K1_OPS * a[3].numel()
+    out["scale_features"] = Check(
         worst,
         lambda: [scale_features.scale_features_batch(*a) for a in args],
         lambda: [scale_features.scale_features_plain(*a) for a in args],
+        moved, ops, f"{w} px, B={b}, six scales",
     )
     torch.cuda.synchronize()
     return out
@@ -265,9 +407,11 @@ def check_odd_shapes(device: torch.device) -> None:
     axes (widths 53 and 653, as the Pallas kernels' tests use)."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels.blur import blur_separable
-    from codec_eval_tpu_torch.kernels.cuda import freqsep, malta, scale_features
+    from codec_eval_tpu_torch.kernels.cuda import blur, freqsep, malta, scale_features
 
     rng = np.random.default_rng(SEED)
+    lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
+    consts = ba._fused_diffmap_consts(0.8, 1.0)
     for b, h, w in ((2, 37, 53), (1, 67, 653)):
         def planes(c, scale=1.0):
             return torch.from_numpy(rng.random((b, c, h, w), np.float32) * scale).to(device)
@@ -280,7 +424,6 @@ def check_odd_shapes(device: torch.device) -> None:
         compare(f"K3 {b}x{h}x{w}", freqsep.bands_batch(xyb, lf, ba._BAND_CONSTS),
                 freqsep.bands_plain(xyb, lf, ba._BAND_CONSTS), **KERNEL_TOL)
         diffs = planes(6) - 0.5
-        lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
         compare(f"K4 {b}x{h}x{w}", malta.malta_ac_batch(diffs, *lines),
                 malta.malta_ac_plain(diffs, *lines), **KERNEL_TOL)
         xyb1 = planes(3)[0].contiguous()
@@ -290,55 +433,74 @@ def check_odd_shapes(device: torch.device) -> None:
         args = (xyb1, mu1, s11, xyb2)
         compare(f"K1 {b}x{h}x{w}", scale_features.scale_features_batch(*args),
                 scale_features.scale_features_plain(*args), **K1_TOL)
+        ref6 = (planes(6)[0] - 0.5).contiguous()
+        k5 = (planes(6) - 0.5, ref6, planes(4) - 0.5, (planes(4)[0] - 0.5).contiguous(),
+              planes(1)[:, 0].contiguous(), planes(2)[0].contiguous(), *lines, *consts)
+        compare(f"K5 {b}x{h}x{w}", malta.malta_diffmap_batch(*k5),
+                malta.malta_diffmap_plain(*k5), **KERNEL_TOL)
+        for sigma in (ba.SIGMA_MASK, ba.SIGMA_LF):
+            d = planes(2, 10.0)
+            compare(f"K6 {b}x{h}x{w} sigma {sigma:g}", blur.blur_batch(d, sigma),
+                    blur.blur_batch_plain(d, sigma), **KERNEL_TOL)
     torch.cuda.synchronize()
 
 
-def phase_slice(ref_u8: np.ndarray, report_dir: Path, device: torch.device) -> dict:
-    """The 25-quality all-metric EvalSession sweep; returns each kernel's
-    launch count during the sweep."""
+def phase_slice(
+    ref_u8: np.ndarray, qualities: list, picks: list, report_dir: Path, device, idle: set,
+) -> dict:
+    """An all-metric EvalSession sweep of ``ref_u8`` at ``qualities`` on
+    ``device`` (``None``: the session's default).  Checks the report, the
+    monotonicity of the scores, that every kernel but those in ``idle``
+    launched and those did not, and the card's scores at ``picks`` against
+    the host's; times one ``score_batch`` of the whole ladder.  Returns
+    each kernel's launch count during the sweep."""
     import codec_eval_tpu_torch as ce
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
 
     def decode(data):
         return ce.ImageData.rgb8(dct_decode_array(data))
 
+    on = {} if device is None else {"device": device}
     config = (
         ce.EvalConfig.builder().report_dir(report_dir).metrics(ce.MetricConfig.all())
-        .quality_levels(QUALITIES).build()
+        .quality_levels(qualities).build()
     )
-    session = ce.EvalSession(config, device=device)
+    session = ce.EvalSession(config, **on)
     session.add_codec_with_decode("dct-q", "1", dct_encode, decode)
 
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    reset_launches()
+    t0 = time.perf_counter()
     report = session.evaluate_image("smoke", ce.ImageData.rgb8(ref_u8))
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    launches = read_launches()
+    print(f"  sweep on {session._scorer.device}: {time.perf_counter() - t0:.2f} s "
+          f"(host codec included); launches during the sweep: {launches}")
     session.write_image_report(report)
-    print(f"  launches during the sweep: {launches}")
 
     written = json.loads((report_dir / "smoke.json").read_text())
-    if len(written["results"]) != len(QUALITIES):
+    if len(written["results"]) != len(qualities):
         raise AssertionError("the report does not hold one row per quality")
     rows = {r.quality: r.metrics for r in report.results}
     metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
-    values = np.array([[getattr(rows[q], m) for m in metrics] for q in QUALITIES], np.float64)
-    if values.shape != (len(QUALITIES), 4) or not np.isfinite(values).all():
+    values = np.array([[getattr(rows[q], m) for m in metrics] for q in qualities], np.float64)
+    if values.shape != (len(qualities), 4) or not np.isfinite(values).all():
         raise AssertionError(f"non-finite or missing scores:\n{values}")
-    lo, hi = rows[QUALITIES[0]], rows[QUALITIES[-1]]
+    lo, hi = rows[qualities[0]], rows[qualities[-1]]
     if not hi.ssimulacra2 > lo.ssimulacra2:
-        raise AssertionError("SSIMULACRA2 does not rise from q5 to q100")
+        raise AssertionError(f"SSIMULACRA2 does not rise from q{qualities[0]} to q{qualities[-1]}")
     if not hi.butteraugli < lo.butteraugli:
-        raise AssertionError("Butteraugli does not fall from q5 to q100")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+        raise AssertionError(f"Butteraugli does not fall from q{qualities[0]} to q{qualities[-1]}")
+    silent = sorted(name for name, n in launches.items() if n <= 0 and name not in idle)
+    stray = sorted(name for name, n in launches.items() if n > 0 and name in idle)
+    if silent or stray:
+        raise AssertionError(f"kernels that never launched: {silent}; kernels off this "
+                             f"path that launched: {stray}")
 
-    # Three candidates rescored on the host: the plain versions, which the
-    # CPU tests hold to the JAX package.
-    picks = [5, 50, 100]
+    # Candidates rescored on the host: the plain versions, which the CPU
+    # tests hold to the JAX package.
+    t0 = time.perf_counter()
     host = ce.BatchScorer(ce.MetricConfig.all(), device="cpu").score_batch(
         ref_u8, candidates(ref_u8, picks)
     )
+    print(f"  host rescoring of q{picks}: {time.perf_counter() - t0:.2f} s")
     for q, h in zip(picks, host):
         d = rows[q]
         print(
@@ -347,12 +509,15 @@ def phase_slice(ref_u8: np.ndarray, report_dir: Path, device: torch.device) -> d
         )
         for m in metrics:
             g, w = getattr(d, m), getattr(h, m)
+            rel = abs(g - w) / max(abs(w), 1e-30)
+            print(f"    {m}: card {g!r} host {w!r} rel {rel:.3e}")
             if abs(g - w) > SCORE_RTOL[m] * abs(w):
                 raise AssertionError(f"q{q} {m}: card {g!r} vs host {w!r}")
 
-    # One score_batch of 25, with the reference precompute cached.
-    batch = candidates(ref_u8, QUALITIES)
-    scorer = ce.BatchScorer(ce.MetricConfig.all(), device=device)
+    # One score_batch of the whole ladder, with the reference precompute cached.
+    batch = candidates(ref_u8, qualities)
+    scorer = ce.BatchScorer(ce.MetricConfig.all(), **on)
+    torch.cuda.reset_peak_memory_stats()
     scorer.score_batch(ref_u8, batch)
     times = []
     for _ in range(5):
@@ -360,11 +525,88 @@ def phase_slice(ref_u8: np.ndarray, report_dir: Path, device: torch.device) -> d
         scorer.score_batch(ref_u8, batch)
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
+    side = ref_u8.shape[0]
     print(
-        f"  score_batch of {len(batch)} at {SIZE}px: median {med * 1e3:.3f} ms of 5 "
-        f"({[round(t * 1e3, 3) for t in times]}), {len(batch) / med:.2f} pairs/s"
+        f"  score_batch of {len(batch)} at {side}px: median {med * 1e3:.3f} ms of 5 "
+        f"({[round(t * 1e3, 3) for t in times]}), {len(batch) / med:.2f} pairs/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
     )
     return launches
+
+
+def phase_kernels_big(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device):
+    """K5 and K6 against their plain versions on the inputs the 2048 px
+    sweep gives them: K5 and K6 at full resolution, K6 at half (1024 px).
+    Returns the checks for phase 6, K6's half-resolution check, and at both
+    resolutions the whole diffmap both ways (K5 with its staging; the
+    Malta prologue, K4 and the eager epilogue) for phase 6 to time."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
+    from codec_eval_tpu_torch.kernels.cuda import blur, malta
+
+    planar = torch.from_numpy(np.ascontiguousarray(np.moveaxis(cands_u8, -1, 1))).to(device)
+    ref = torch.from_numpy(ref_u8).to(device)
+    lin = srgb_u8_to_linear(planar)
+    lin_ref = torch.movedim(srgb_u8_to_linear(ref), -1, 0).contiguous()
+    params = ba.ButteraugliParams()
+    it = float(np.float32(params.intensity_target))
+    a, xmul = params.hf_asymmetry, params.xmul
+    lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
+    pre = ba.precompute_butteraugli_reference(lin_ref)
+    b = planar.shape[0]
+    out = {}
+
+    def diffmaps(pi0, pi1, mask_pre):
+        dac = ba._mask_diff_ac_batch(pi1, mask_pre[0])
+
+        def fused():
+            return malta.malta_diffmap_batch(
+                *ba._fused_diffmap_args(pi0, pi1, a, xmul, mask_pre, dac))
+
+        def unfused():
+            stacks = ba._malta_diffs_stack(pi0, pi1, a).contiguous()
+            return ba._diffmap_psycho(pi0, pi1, a, xmul, malta.malta_ac_batch(stacks, *lines),
+                                      mask_pre, dac)
+
+        return f"{dac.shape[-1]} px, B={b}", fused, unfused
+
+    pi1 = ba._psycho_batch(lin * it)
+    flows = [diffmaps(pre.pi0_full, pi1, pre.mask_full)]
+    dac = ba._mask_diff_ac_batch(pi1, pre.mask_full[0])
+    k5 = ba._fused_diffmap_args(pre.pi0_full, pi1, a, xmul, pre.mask_full, dac)
+    h, w = dac.shape[-2:]
+    got = malta.malta_diffmap_batch(*k5)
+    want = malta.malta_diffmap_plain(*k5)
+    tensors = [t for t in k5 if isinstance(t, torch.Tensor)]
+    ops = (malta_ops(*k5[6:8]) + 6 * PROLOGUE_OPS + EPILOGUE_OPS) * b * h * w
+    out["malta_diffmap"] = Check(
+        compare(f"K5 malta_diffmap {b}x{h}x{w}", got, want, **KERNEL_TOL),
+        lambda: malta.malta_diffmap_batch(*k5),
+        lambda: malta.malta_diffmap_plain(*k5),
+        nbytes(*tensors, got), ops, f"{h} px, B={b}",
+    )
+    del dac, got, want
+
+    def k6_check(pi: "ba.PsychoImage", label: str) -> Check:
+        d1 = ba._diff_precompute(ba._combine_channels_for_masking(pi))[:, None].contiguous()
+        sigma = ba.SIGMA_MASK
+        bh, bw = d1.shape[-2:]
+        got = blur.blur_batch(d1, sigma)
+        return Check(
+            compare(f"K6 blur {label} {b}x{bh}x{bw}", got, blur.blur_batch_plain(d1, sigma),
+                    **KERNEL_TOL),
+            lambda: blur.blur_batch(d1, sigma),
+            lambda: blur.blur_batch_plain(d1, sigma),
+            2 * nbytes(d1) + bh * bw * 4, blur_ops(sigma) * d1.numel(), f"{bh} px, B={b}",
+            library=lambda: ba._blur(d1, sigma),
+        )
+
+    out["blur"] = k6_check(pi1, "full")
+    pi1_half = ba._psycho_batch(ba._subsample2x(lin) * it)
+    half = k6_check(pi1_half, "half")
+    flows.append(diffmaps(pre.pi0_sub, pi1_half, pre.mask_sub))
+    torch.cuda.synchronize()
+    return out, half, flows
 
 
 def phase_oracle(device: torch.device) -> None:
@@ -391,6 +633,77 @@ def phase_oracle(device: torch.device) -> None:
         raise AssertionError("the libjxl oracle gates (0.5% / 2% / 8%) failed")
 
 
+def time_check(label: str, c: Check) -> dict:
+    """Kernel, plain and library device times of one check, in turns."""
+    p1, k1, k2, p2 = (time_ms(f, 10) for f in (c.plain, c.kernel, c.kernel, c.plain))
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    library_ms = time_ms(c.library, 10) if c.library is not None else None
+    bound_ms, bound_by = bound(c.nbytes, c.ops)
+    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+    print(f"  {label} ({c.shapes}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+          f"bound {bound_ms:.4f} ms by {bound_by} ({c.nbytes / 1e6:.1f} MB, "
+          f"{c.ops / 1e9:.2f} Gop)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def profile(ref_u8: np.ndarray, batch: np.ndarray) -> None:
+    """``torch.profiler`` over one all-metric ``score_batch``, the
+    host staging on its own, and each metric's ``score_batch`` alone (median
+    of 3 after a warm-up)."""
+    import codec_eval_tpu_torch as ce
+    from torch.profiler import ProfilerActivity
+
+    scorer = ce.BatchScorer(ce.MetricConfig.all())
+    scorer.score_batch(ref_u8, batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scorer.score_batch(ref_u8, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Device-side events are the kernels and copies; the operators that
+    # launched them carry the same time again.  The profiler's own buffer
+    # requests are left out.
+    events = sorted(
+        (e for e in prof.key_averages() if not e.key.startswith("Activity Buffer")),
+        key=device_us, reverse=True,
+    )
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
+    busy = sum(device_us(e) for e in on_device) / 1e3
+    print(f"  profiled score_batch of {len(batch)}: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} %")
+    for title, rows in (("operators", ops), ("kernels and copies", on_device)):
+        print(f"  by {title}, self device time:")
+        for e in rows[:15]:
+            if device_us(e) <= 0:
+                break
+            print(f"    {device_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+    # The scorer's host staging alone: the transpose to planar, then the copy.
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        planar = np.ascontiguousarray(np.moveaxis(batch, -1, 1))
+        times.append(time.perf_counter() - t0)
+    h2d = time_ms(lambda: torch.from_numpy(planar).to("cuda"), 3)
+    print(f"  host transpose to planar: median {statistics.median(times) * 1e3:.3f} ms of 3; "
+          f"pageable copy to the card: {h2d:.3f} ms")
+    for metric in ("psnr", "ssimulacra2", "dssim", "butteraugli"):
+        one = ce.BatchScorer(ce.MetricConfig(**{metric: True}))
+        one.score_batch(ref_u8, batch)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one.score_batch(ref_u8, batch)
+            times.append(time.perf_counter() - t0)
+        print(f"  {metric} alone: median {statistics.median(times) * 1e3:.3f} ms of 3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -400,36 +713,85 @@ def main() -> int:
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    start = time.perf_counter()
     print(f"[1] device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     _lib.load()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
 
+    def done(phase: int, t0: float) -> None:
+        print(f"  phase {phase}: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
     ref_u8 = make_image(SIZE, SEED)
     print(f"[2] kernels vs plain on the card ({len(QUALITIES)} x 3 x {SIZE} x {SIZE})")
     checks = phase_kernels(ref_u8, candidates(ref_u8, QUALITIES), device)
     check_odd_shapes(device)
+    done(2, t0)
 
+    t0 = time.perf_counter()
     print(f"[3] EvalSession sweep on {device}: {len(QUALITIES)} qualities at {SIZE}px")
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_slice(ref_u8, Path(tmp), device)
+        launches = phase_slice(ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
+                               idle={"malta_diffmap", "blur"})
+    done(3, t0)
 
+    t0 = time.perf_counter()
     print("[4] libjxl Butteraugli oracle on the card")
     phase_oracle(device)
+    done(4, t0)
 
-    print(f"[5] kernel vs plain device time, mean of 20 (plain, kernel, kernel, plain) | {card}")
+    t0 = time.perf_counter()
+    big_u8 = make_image(BIG, SEED)
+    print(f"[5] EvalSession sweep with the default device: {len(BIG_QUALITIES)} qualities "
+          f"at {BIG}px")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_big = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp), None, idle=set())
+    big_batch = candidates(big_u8, BIG_QUALITIES)
+    print(f"  kernels vs plain on the {BIG} px sweep's inputs")
+    checks_big = phase_kernels(big_u8, big_batch, device)
+    k56, k6_half, flows = phase_kernels_big(big_u8, big_batch, device)
+    checks_big.update(k56)
+    done(5, t0)
+
+    t0 = time.perf_counter()
+    print(f"[6] device time, mean of 10 (plain, kernel, kernel, plain) | {card}")
     rows = []
     for name, fn in WRAPPERS.items():
-        err, kernel, plain = checks[name]
-        p1, k1, k2, p2 = (time_ms(f, 10) for f in (plain, kernel, kernel, plain))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        rows.append({
+        # Each kernel's row is timed on the path it was ported for (K1-K4 at
+        # 512 px, K5 and K6 at 2048 px); its error is the worst of both paths.
+        small, big = checks.get(name), checks_big[name]
+        row = {
             "name": name, "route": "cuda", "source": fn.source, "replaces": fn.replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        })
+            "launches": (launches if small else launches_big)[name],
+            "max_abs_err": max(big.err, small.err if small else 0.0),
+            **time_check(name, small or big),
+            "shapes": (small or big).shapes,
+            "launches_512": launches[name], "launches_2048": launches_big[name],
+            "max_abs_err_512": small.err if small else None, "max_abs_err_2048": big.err,
+        }
+        if small:
+            row["at_2048"] = time_check(f"{name} on the {BIG} px path", big)
+        rows.append(row)
+    time_check("blur (half resolution)", k6_half)
+    for shapes, fused, unfused in flows:
+        f1, u1, u2, f2 = (time_ms(f, 5) for f in (fused, unfused, unfused, fused))
+        diff = (fused() - unfused()).abs().max().item()
+        print(f"  diffmap ({shapes}), mean of 5: K5 with its staging {(f1 + f2) / 2:.4f} ms, "
+              f"prologue + K4 + eager epilogue {(u1 + u2) / 2:.4f} ms; "
+              f"max |difference| {diff:.3e}")
+    done(6, t0)
+
+    if "--profile" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        for image, batch in ((ref_u8, candidates(ref_u8, QUALITIES)), (big_u8, big_batch)):
+            print(f"[profile] one score_batch of {len(batch)} at {image.shape[0]}px | {card}")
+            profile(image, batch)
+        done(7, t0)
+
     torch.cuda.synchronize()
+    print(f"  total: {time.perf_counter() - start:.2f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps(

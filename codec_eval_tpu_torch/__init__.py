@@ -11,7 +11,7 @@ Quick start::
     import codec_eval_tpu_torch as ce
     config = (ce.EvalConfig.builder().report_dir("reports")
               .metrics(ce.MetricConfig.all()).quality_levels([50, 75, 95]).build())
-    session = ce.EvalSession(config, device="cuda")   # or "cpu"
+    session = ce.EvalSession(config)   # on the card; device="cpu" for the host
     session.add_codec_with_decode("my-codec", "1.0", encode, decode)
     report = session.evaluate_image("img", ce.ImageData.rgb8(pixels))
 """

@@ -95,7 +95,7 @@ class BatchScorer:
     crc), so consecutive chunks against one image skip it, and a caller
     that reuses its decode buffer cannot leave stale pyramids behind."""
 
-    def __init__(self, config: MetricConfig, device="cpu"):
+    def __init__(self, config: MetricConfig, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         self._ref_key: object = None

@@ -96,10 +96,11 @@ class _CodecEntry:
 class EvalSession:
     """The evaluation engine.  reference: src/eval/session.rs:309-497.
 
-    ``device`` is where the metrics run: "cpu" or "cuda".
+    ``device`` is where the metrics run: the card ("cuda", the default) or
+    the host ("cpu", when the caller asks for it).
     """
 
-    def __init__(self, config: EvalConfig, device="cpu"):
+    def __init__(self, config: EvalConfig, device="cuda"):
         self.config = config
         self._codecs: List[_CodecEntry] = []
         self._scorer = BatchScorer(config.metrics, device=device)

@@ -8,11 +8,15 @@ public butteraugli model shipped in libjxl), two resolutions:
    operator product, then K3 for the MF/HF/UHF bands;
 3. Malta directional line sums -- the asymmetric diff planes, then K4
    (``cuda/malta.py``);
-4. masking -- from the reference once per image, plus the candidate's
-   sigma-2.7 blur term, as dense operator products;
+4. masking -- from the reference once per image as dense operator
+   products, plus the candidate's sigma-2.7 blur term: a dense operator
+   product, or K6 (``cuda/blur.py``) on planes of 1024 px and more;
 5. combination -- ``sqrt(dc_mask*dc + mask*ac)`` per pixel and the
    half-resolution pass blended in as ``0.85*full + 0.5*upsampled(half)``;
    the score is the max of the map.
+
+On planes of 1400 px and more, steps 3 and 5's per-pixel distance run as
+one kernel, K5 (``cuda/malta.py``), as the JAX package routes them.
 
 On CUDA tensors both the reference and the candidate side run through the
 kernels; on CPU tensors every kernel wrapper takes its plain version.
@@ -29,11 +33,23 @@ import numpy as np
 import torch
 
 from .color import rdiv
+from .cuda.blur import blur_batch
 from .cuda.freqsep import bands_batch, opsin_xyb_batch
-from .cuda.malta import malta_ac_batch
+from .cuda.malta import l2_asymmetric, malta_ac_batch, malta_diffmap_batch, malta_prologue
 
 SIGMA_LF = 7.1559334
 SIGMA_MASK = 2.7
+
+# Size routes, under the JAX package's names and at its defaults
+# (``codec_eval_tpu/kernels/butteraugli.py``): K5, the whole-diffmap kernel,
+# on planes whose shortest side is at least _FUSED_EPI_MIN_SIDE; K6, the
+# batched FIR blur, for the candidate's mask blur on planes whose shortest
+# side is at least _BLUR_PALLAS_MIN_SIDE, when the filter has at most
+# _BLUR_PALLAS_MAX_TAPS taps (sigma 2.7 has 13; the 33-tap LF blur stays a
+# dense operator product there too).
+_FUSED_EPI_MIN_SIDE = 1400
+_BLUR_PALLAS_MIN_SIDE = 1024
+_BLUR_PALLAS_MAX_TAPS = 16
 
 _OPSIN = np.array(
     [
@@ -245,26 +261,7 @@ def _malta_prologue(lum0, lum1, w_0gt1: float, w_0lt1: float, norm1: float, mull
     den = f(_MALTA_LEN * 2 + 1)
     norm2_0gt1 = float(f(mulli) * np.sqrt(f(_MALTA_W0) * f(w_0gt1)) / den * f(norm1))
     norm2_0lt1 = float(f(mulli) * np.sqrt(f(_MALTA_W1) * f(w_0lt1)) / den * f(norm1))
-
-    diff = lum0 - lum1
-    denom = norm1 + 0.5 * (torch.abs(lum0) + torch.abs(lum1))
-    diffs = rdiv(norm2_0gt1, denom) * diff
-    scaler2 = rdiv(norm2_0lt1, denom)
-    fabs0 = torch.abs(lum0)
-    too_small = 0.55 * fabs0
-    too_big = 1.05 * fabs0
-    zero = torch.zeros_like(diff)
-    impact_pos = torch.where(
-        lum1 < too_small,
-        scaler2 * (too_small - lum1),
-        torch.where(lum1 > too_big, -scaler2 * (lum1 - too_big), zero),
-    )
-    impact_neg = torch.where(
-        lum1 > -too_small,
-        -scaler2 * (lum1 + too_small),
-        torch.where(lum1 < -too_big, scaler2 * (-lum1 - too_big), zero),
-    )
-    return diffs + torch.where(lum0 >= 0, impact_pos, impact_neg)
+    return malta_prologue(lum0, lum1, norm2_0gt1, norm2_0lt1, norm1)
 
 
 def _asym_weights(kind: str, wbase: float, hf_asymmetry: float) -> Tuple[float, float]:
@@ -296,19 +293,7 @@ def _malta_diffs_stack(pi0: PsychoImage, pi1: PsychoImage, hf_asymmetry: float) 
 def _l2_diff_asymmetric(v0, v1, w_0gt1: float, w_0lt1: float):
     k_gt = float(np.float32(0.8) * np.float32(w_0gt1))
     k_lt = float(np.float32(0.8) * np.float32(w_0lt1))
-    d = v0 - v1
-    total = k_gt * d * d
-    fabs0 = torch.abs(v0)
-    too_small = 0.4 * fabs0
-    zero = torch.zeros_like(d)
-    pos = torch.where(
-        v1 < too_small, too_small - v1, torch.where(v1 > fabs0, v1 - fabs0, zero)
-    )
-    neg = torch.where(
-        v1 > -too_small, v1 + too_small, torch.where(v1 < -fabs0, -v1 - fabs0, zero)
-    )
-    v = torch.where(v0 < 0, neg, pos)
-    return total + k_lt * v * v
+    return l2_asymmetric(v0, v1, k_gt, k_lt)
 
 
 def _combine_channels_for_masking(pi: PsychoImage) -> torch.Tensor:
@@ -360,9 +345,19 @@ def _mask_pre_of(pi0: PsychoImage):
     return (b0, _mask_y(mask), _mask_dc_y(mask))
 
 
+def _blur_batch_ok(h: int, w: int, sigma: float) -> bool:
+    """Whether a batched blur of (h, w) planes takes K6."""
+    ntaps = 2 * max(1, int(2.25 * sigma)) + 1
+    return min(h, w) >= _BLUR_PALLAS_MIN_SIDE and ntaps <= _BLUR_PALLAS_MAX_TAPS
+
+
 def _mask_diff_ac_batch(pi1_batch: PsychoImage, b0: torch.Tensor) -> torch.Tensor:
     """The candidate-side masking term: (B, H, W) diff_ac."""
-    b1 = _blur(_diff_precompute(_combine_channels_for_masking(pi1_batch)), SIGMA_MASK)
+    d1 = _diff_precompute(_combine_channels_for_masking(pi1_batch))
+    if _blur_batch_ok(d1.shape[-2], d1.shape[-1], SIGMA_MASK):
+        b1 = blur_batch(d1[:, None].contiguous(), SIGMA_MASK)[:, 0]
+    else:
+        b1 = _blur(d1, SIGMA_MASK)
     return _MASK_DIFF_AC_MUL * (b0 - b1) * (b0 - b1)
 
 
@@ -407,6 +402,57 @@ def _diffmap_psycho(
         xmul * ac0 + ac1 + ac2
     )
     return torch.sqrt(torch.clamp(total, min=0.0))
+
+
+def _fused_diffmap_ok(h: int, w: int) -> bool:
+    """Whether the diffmap of (h, w) planes takes K5."""
+    return min(h, w) >= _FUSED_EPI_MIN_SIDE
+
+
+def _fused_diffmap_consts(hf_asymmetry: float, xmul: float):
+    """K5's per-channel prologue constants (n2g, n2l, norm1) and epilogue
+    weights, resolved in Python doubles as the JAX package does for its
+    fused kernel (the unfused path rounds to f32 at each step instead)."""
+    a = float(hf_asymmetry)
+    sqrt_a = math.sqrt(a)
+    ch_consts = []
+    for _band, _ch, _dest, kind, wbase, norm1, mulli, _pat in _MALTA_CALLS:
+        if kind == "a":
+            wg, wl = wbase * a, wbase / a
+        elif kind == "sqrt_a":
+            wg, wl = wbase * sqrt_a, wbase / sqrt_a
+        else:
+            wg = wl = wbase
+        den = _MALTA_LEN * 2 + 1
+        n2g = mulli * math.sqrt(_MALTA_W0 * wg) / den * norm1
+        n2l = mulli * math.sqrt(_MALTA_W1 * wl) / den * norm1
+        ch_consts.append((n2g, n2l, norm1))
+    epi = (
+        _WMUL[0] * a, _WMUL[0] / a, _WMUL[1] * a, _WMUL[1] / a,
+        _WMUL[3], _WMUL[4], _WMUL[5], _WMUL[6], _WMUL[7], _WMUL[8],
+        float(xmul),
+    )
+    return tuple(ch_consts), epi
+
+
+def _fused_diffmap_args(
+    pi0: PsychoImage, pi1: PsychoImage, hf_asymmetry: float, xmul: float, mask_pre,
+    dac: torch.Tensor,
+) -> tuple:
+    """K5's arguments: the planes staged as the JAX package stages them."""
+    ch_consts, epi = _fused_diffmap_consts(hf_asymmetry, xmul)
+    cand6 = torch.stack(
+        [pi1.uhf[:, 1], pi1.uhf[:, 0], pi1.hf[:, 1], pi1.hf[:, 0], pi1.mf[:, 1], pi1.mf[:, 0]],
+        dim=1,
+    )
+    ref6 = torch.stack([pi0.uhf[1], pi0.uhf[0], pi0.hf[1], pi0.hf[0], pi0.mf[1], pi0.mf[0]])
+    crest = torch.cat([pi1.mf[:, 2:3], pi1.lf], dim=1)
+    rrest = torch.cat([pi0.mf[2:3], pi0.lf], dim=0)
+    masks = torch.stack([mask_pre[1], mask_pre[2]])
+    return (
+        cand6, ref6, crest, rrest, dac.contiguous(), masks,
+        _MALTA_LINES_FULL, _MALTA_LINES_LF, ch_consts, epi,
+    )
 
 
 def _subsample2x(planes: torch.Tensor) -> torch.Tensor:
@@ -472,6 +518,11 @@ def precompute_butteraugli_reference(
 
 def _resolve(ref_pi: PsychoImage, pi1: PsychoImage, mask_pre, params: ButteraugliParams):
     dac = _mask_diff_ac_batch(pi1, mask_pre[0])
+    h, w = dac.shape[-2], dac.shape[-1]
+    if _fused_diffmap_ok(h, w):
+        return malta_diffmap_batch(
+            *_fused_diffmap_args(ref_pi, pi1, params.hf_asymmetry, params.xmul, mask_pre, dac)
+        )
     stacks = _malta_diffs_stack(ref_pi, pi1, params.hf_asymmetry).contiguous()
     ac = malta_ac_batch(stacks, _MALTA_LINES_FULL, _MALTA_LINES_LF)
     return _diffmap_psycho(

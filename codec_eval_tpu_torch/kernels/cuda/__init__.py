@@ -6,8 +6,9 @@ in a ``launches`` attribute.  ``source`` names its CUDA file and
 ``replaces`` the Pallas kernel of the JAX package it ports.
 """
 
+from .blur import blur_batch
 from .freqsep import bands_batch, opsin_xyb_batch
-from .malta import malta_ac_batch
+from .malta import malta_ac_batch, malta_diffmap_batch
 from .scale_features import scale_features_batch
 
 #: Every kernel wrapper of the port, by kernel name.
@@ -16,4 +17,6 @@ WRAPPERS = {
     "opsin_xyb": opsin_xyb_batch,
     "bands": bands_batch,
     "malta_ac": malta_ac_batch,
+    "malta_diffmap": malta_diffmap_batch,
+    "blur": blur_batch,
 }

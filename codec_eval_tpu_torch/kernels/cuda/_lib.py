@@ -1,7 +1,8 @@
 """Build and load the hand-written Hopper kernels.
 
-At first use, ``nvcc`` compiles every ``codec_eval_tpu_torch/csrc/*.cu`` into
-one shared library with a plain C interface under ``build/kernels/`` at the
+At first use, ``nvcc`` compiles every ``codec_eval_tpu_torch/csrc/*.cu`` (one
+process per source, all started together) and links the objects into one
+shared library with a plain C interface under ``build/kernels/`` at the
 repository root.  The library's name carries a hash of the sources and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 It is bound with ``ctypes``: every pointer and the CUDA stream travel as
@@ -29,15 +30,12 @@ PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE.parent / "build" / "kernels"
 
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: ``-fmad=false`` keeps every multiply and add separately rounded, as
 #: PyTorch's elementwise ops are, so a kernel's stencil arithmetic matches
 #: its plain version bit for bit wherever the summation order is the same.
 #: The kernels are bound by memory traffic, not by FMA throughput.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -52,6 +50,11 @@ SIGNATURES = {
     "ce_bands": (P, P, P, P, P, I, I, I, P, P, P, P),
     # diffs, out, b, h, w, weights, geometry, nlines_full, nlines_lf, stream
     "ce_malta_ac": (P, P, I, I, I, P, P, I, I, P),
+    # cand6, ref6, cand_rest, ref_rest, dac, masks, out, b, h, w, weights,
+    # geometry, nlines_full, nlines_lf, ch, epi, stream
+    "ce_malta_diffmap": (P, P, P, P, P, P, P, I, I, I, P, P, I, I, P, P, P),
+    # planes, recip, out, n, h, w, taps, ntaps, stream
+    "ce_blur": (P, P, P, I, I, I, P, I, P),
 }
 
 
@@ -84,24 +87,30 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    # Compile to a private name, then rename: a concurrent build never sees
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(str(obj))
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{p.args[-1]}:\n{log}" for p, log in zip(procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        # Link to a private name, then rename: a concurrent build never sees
+        # a half-written library.
+        lib = Path(tmp) / out.name
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+            [nvcc, "-shared", *ARCH, "-o", str(lib), *objs],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 

@@ -1,11 +1,18 @@
-"""K4: Butteraugli Malta directional sweeps, batched.
+"""K4 and K5: Butteraugli Malta directional sweeps, batched.
 
 ``malta_ac_batch`` is the port's counterpart of
 ``codec_eval_tpu/kernels/pallas/malta.py:malta_ac_batch_pallas``, with the
 same arguments: (B, 6, H, W) asymmetric diff planes and the two line-pattern
-tables -> (B, 2, H, W) accumulators (ac0 = X, ac1 = Y).  On a CUDA tensor it
-launches the hand-written kernel (``csrc/malta.cu``); on a CPU tensor it runs
-the plain PyTorch sweeps beside it.
+tables -> (B, 2, H, W) accumulators (ac0 = X, ac1 = Y).
+
+``malta_diffmap_batch`` is the counterpart of ``malta_diffmap_batch_pallas``,
+the whole-diffmap kernel, with its arguments: the six Malta band planes of
+the candidates and the reference, their mf_b and LF planes, the candidate
+masking term, the reference masks, the line tables and the constants that
+``butteraugli._fused_diffmap_consts`` resolves -> the (B, H, W) diffmap.
+
+On a CUDA tensor each launches its hand-written kernel (``csrc/malta.cu``);
+on a CPU tensor it runs the plain PyTorch version beside it.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..color import rdiv
 from . import _lib
 
 RADIUS = 4
@@ -94,3 +102,128 @@ def malta_ac_batch(diffs: torch.Tensor, lines_full, lines_lf) -> torch.Tensor:
 malta_ac_batch.launches = 0
 malta_ac_batch.source = "codec_eval_tpu_torch/csrc/malta.cu"
 malta_ac_batch.replaces = "codec_eval_tpu/kernels/pallas/malta.py:471"
+
+
+# --------------------------------------------------------------------- K5
+
+
+def malta_prologue(l0, l1, n2g: float, n2l: float, n1: float) -> torch.Tensor:
+    """The asymmetric diff plane of reference ``l0`` and candidate ``l1``
+    that a Malta sweep consumes, with the scalar weights resolved by the
+    caller: n2g and n2l are ``mulli*sqrt(W*w)/(2*len+1)*norm1`` for the
+    two asymmetry branches."""
+    diff = l0 - l1
+    denom = n1 + 0.5 * (torch.abs(l0) + torch.abs(l1))
+    diffs = rdiv(n2g, denom) * diff
+    scaler2 = rdiv(n2l, denom)
+    fabs0 = torch.abs(l0)
+    too_small = 0.55 * fabs0
+    too_big = 1.05 * fabs0
+    zero = torch.zeros_like(diff)
+    impact_pos = torch.where(
+        l1 < too_small,
+        scaler2 * (too_small - l1),
+        torch.where(l1 > too_big, -scaler2 * (l1 - too_big), zero),
+    )
+    impact_neg = torch.where(
+        l1 > -too_small,
+        -scaler2 * (l1 + too_small),
+        torch.where(l1 < -too_big, scaler2 * (-l1 - too_big), zero),
+    )
+    return diffs + torch.where(l0 >= 0, impact_pos, impact_neg)
+
+
+def l2_asymmetric(v0, v1, k_gt: float, k_lt: float) -> torch.Tensor:
+    """Butteraugli's asymmetric L2 of the HF bands; ``k_gt`` and ``k_lt``
+    are the two weights with the 0.8 already applied."""
+    d = v0 - v1
+    total = k_gt * d * d
+    fabs0 = torch.abs(v0)
+    too_small = 0.4 * fabs0
+    zero = torch.zeros_like(d)
+    pos = torch.where(
+        v1 < too_small, too_small - v1, torch.where(v1 > fabs0, v1 - fabs0, zero)
+    )
+    neg = torch.where(
+        v1 > -too_small, v1 + too_small, torch.where(v1 < -fabs0, -v1 - fabs0, zero)
+    )
+    v = torch.where(v0 < 0, neg, pos)
+    return total + k_lt * v * v
+
+
+def malta_diffmap_plain(
+    cand6, ref6, cand_rest, ref_rest, dac, masks, lines_full, lines_lf, ch_consts, epi
+) -> torch.Tensor:
+    """The (B, H, W) diffmap, in the Pallas kernel's order of sums."""
+    diffs = torch.stack(
+        [malta_prologue(ref6[c], cand6[:, c], *ch_consts[c]) for c in range(6)], dim=1
+    )
+    ac = malta_ac_plain(diffs, lines_full, lines_lf)
+    (l2x_g, l2x_l, l2y_g, l2y_l, w_mfx, w_mfy, w_mfb, w_lfx, w_lfy, w_lfb, xmul) = epi
+    # Six-plane order: uhf_y, uhf_x, hf_y, hf_x, mf_y, mf_x.
+    ac0 = ac[:, 0] + l2_asymmetric(ref6[3], cand6[:, 3], 0.8 * l2x_g, 0.8 * l2x_l)
+    ac1 = ac[:, 1] + l2_asymmetric(ref6[2], cand6[:, 2], 0.8 * l2y_g, 0.8 * l2y_l)
+    d_mfx = ref6[5] - cand6[:, 5]
+    ac0 = ac0 + w_mfx * d_mfx * d_mfx
+    d_mfy = ref6[4] - cand6[:, 4]
+    ac1 = ac1 + w_mfy * d_mfy * d_mfy
+    # Rest order: mf_b, lf_x, lf_y, lf_b.
+    d_mfb = ref_rest[0] - cand_rest[:, 0]
+    ac2 = w_mfb * d_mfb * d_mfb
+    ac1 = ac1 + dac
+    d_lfx = ref_rest[1] - cand_rest[:, 1]
+    d_lfy = ref_rest[2] - cand_rest[:, 2]
+    d_lfb = ref_rest[3] - cand_rest[:, 3]
+    dc = xmul * (w_lfx * d_lfx * d_lfx) + w_lfy * d_lfy * d_lfy + w_lfb * d_lfb * d_lfb
+    total = masks[1] * dc + masks[0] * (xmul * ac0 + ac1 + ac2)
+    return torch.sqrt(torch.clamp(total, min=0.0))
+
+
+@functools.lru_cache(maxsize=4)
+def _diffmap_args(ch_consts, epi):
+    """The kernel's constants as f32: (6, 3) per-channel prologue constants
+    and the 11 epilogue weights, the L2 pair weights times 0.8 as the plain
+    version forms them (in double, rounded once)."""
+    if len(ch_consts) != 6 or len(epi) != 11:
+        raise ValueError("the diffmap kernel takes 6 channel triples and 11 weights")
+    ch = np.asarray(ch_consts, np.float64).reshape(18).astype(np.float32)
+    ep = np.asarray([0.8 * v for v in epi[:4]] + list(epi[4:]), np.float32)
+    return ch, ep
+
+
+def malta_diffmap_batch(
+    cand6, ref6, cand_rest, ref_rest, dac, masks, lines_full, lines_lf, ch_consts, epi
+) -> torch.Tensor:
+    """K5.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if cand6.device.type == "cpu":
+        return malta_diffmap_plain(
+            cand6, ref6, cand_rest, ref_rest, dac, masks, lines_full, lines_lf, ch_consts, epi
+        )
+    _lib.require_cuda("cand6", cand6, (None, 6, None, None))
+    b, _, h, w = cand6.shape
+    dev = cand6.device
+    for name, t, shape in (
+        ("ref6", ref6, (6, h, w)), ("cand_rest", cand_rest, (b, 4, h, w)),
+        ("ref_rest", ref_rest, (4, h, w)), ("dac", dac, (b, h, w)), ("masks", masks, (2, h, w)),
+    ):
+        _lib.require_cuda(name, t, shape)
+        if t.device != dev:
+            raise ValueError(f"{name} and cand6 must be on one device")
+    weights, geom = _tables(tuple(lines_full), tuple(lines_lf))
+    ch, ep = _diffmap_args(tuple(tuple(c) for c in ch_consts), tuple(epi))
+    out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib.load().ce_malta_diffmap(
+            _lib.ptr(cand6), _lib.ptr(ref6), _lib.ptr(cand_rest), _lib.ptr(ref_rest),
+            _lib.ptr(dac), _lib.ptr(masks), _lib.ptr(out), b, h, w, _lib.ptr(weights),
+            _lib.ptr(geom), len(lines_full), len(lines_lf), _lib.ptr(ch), _lib.ptr(ep),
+            _lib.stream(dev),
+        )
+    _lib.check(rc, "ce_malta_diffmap")
+    malta_diffmap_batch.launches += 1
+    return out
+
+
+malta_diffmap_batch.launches = 0
+malta_diffmap_batch.source = "codec_eval_tpu_torch/csrc/malta.cu"
+malta_diffmap_batch.replaces = "codec_eval_tpu/kernels/pallas/malta.py:347"

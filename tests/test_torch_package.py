@@ -5,9 +5,9 @@
   ``sys.modules`` cannot tell who imported it;
 - (b) the constant tables the port copied equal the JAX package's exactly;
 - (c) on CPU tensors no kernel wrapper launches its kernel;
-- (d) asking for CUDA without a card is an error, never a CPU fallback, and a
-  kernel wrapper given a tensor on any other device than the CPU raises
-  unless it is a CUDA tensor.
+- (d) the card is the default device; asking for CUDA without a card is an
+  error, never a CPU fallback, and a kernel wrapper given a tensor on any
+  other device than the CPU raises unless it is a CUDA tensor.
 """
 
 import ast
@@ -25,6 +25,7 @@ from codec_eval_tpu_torch.kernels import butteraugli as tba
 from codec_eval_tpu_torch.kernels import dssim as td
 from codec_eval_tpu_torch.kernels import ssimulacra2_weights as tw
 from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, _lib
+from codec_eval_tpu_torch.kernels.cuda import blur as tbl
 from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
 from codec_eval_tpu_torch.kernels.cuda import malta as tml
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
@@ -126,7 +127,7 @@ def test_cpu_scoring_launches_no_kernel():
     res = port.BatchScorer(port.MetricConfig.all(), device="cpu").score_batch(ref, cands)
     assert res[1].ssimulacra2 == 100.0 and res[1].butteraugli == 0.0
     assert np.isfinite(res[0].butteraugli) and res[0].butteraugli > 0.0
-    assert [fn.launches for fn in WRAPPERS.values()] == [0, 0, 0, 0]
+    assert [fn.launches for fn in WRAPPERS.values()] == [0] * len(WRAPPERS)
 
 
 def test_cuda_device_without_card_is_an_error(monkeypatch):
@@ -138,6 +139,30 @@ def test_cuda_device_without_card_is_an_error(monkeypatch):
         port.EvalSession(config, device="cuda")
     with pytest.raises(ValueError, match="unsupported device"):
         port.BatchScorer(port.MetricConfig.all(), device="meta")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """With no ``device`` the scorer and the session take the card: without
+    one they raise, and ``device="cpu"`` still works."""
+    config = port.EvalConfig.builder().report_dir("unused").build()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.BatchScorer(port.MetricConfig.all())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.EvalSession(config)
+    assert port.BatchScorer(port.MetricConfig.all(), device="cpu").device.type == "cpu"
+    assert port.EvalSession(config, device="cpu")._scorer.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert port.BatchScorer(port.MetricConfig.all()).device == torch.device("cuda")
+    assert port.EvalSession(config)._scorer.device == torch.device("cuda")
+
+
+def test_default_device_raises_on_this_host():
+    """No monkeypatching: the test host has no card, so the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port.BatchScorer(port.MetricConfig.all())
 
 
 def test_wrappers_refuse_other_devices():
@@ -157,11 +182,18 @@ def test_wrappers_refuse_other_devices():
         lambda: tml.malta_ac_batch(
             torch.empty(2, 6, 16, 16, device=m), tba._MALTA_LINES_FULL, tba._MALTA_LINES_LF
         ),
+        lambda: tml.malta_diffmap_batch(
+            torch.empty(2, 6, 16, 16, device=m), torch.empty(6, 16, 16, device=m),
+            torch.empty(2, 4, 16, 16, device=m), torch.empty(4, 16, 16, device=m),
+            torch.empty(2, 16, 16, device=m), torch.empty(2, 16, 16, device=m),
+            tba._MALTA_LINES_FULL, tba._MALTA_LINES_LF, *tba._fused_diffmap_consts(0.8, 1.0),
+        ),
+        lambda: tbl.blur_batch(torch.empty(2, 1, 16, 16, device=m), tba.SIGMA_MASK),
     ]
     for case in cases:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             case()
-    assert [fn.launches for fn in WRAPPERS.values()] == [0, 0, 0, 0]
+    assert [fn.launches for fn in WRAPPERS.values()] == [0] * len(WRAPPERS)
 
 
 def test_require_cuda_checks_dtype_shape_and_layout():
@@ -191,7 +223,7 @@ def test_require_cuda_checks_dtype_shape_and_layout():
 
 def test_build_names_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     names = {p.name for p in _lib.sources()}
-    assert {"scale_features.cu", "freqsep.cu", "malta.cu"} <= names
+    assert {"scale_features.cu", "freqsep.cu", "malta.cu", "blur.cu"} <= names
     first = _lib.library_path()
     assert first == _lib.library_path() and first.parent == _lib.BUILD_DIR
     monkeypatch.setenv("PATH", str(tmp_path))
