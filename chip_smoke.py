@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``codec_eval_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py              # the smoke run
-    python3 chip_smoke.py --profile    # and a profile of one batch per size
+    python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and then runs six phases,
+``nvcc`` (one process per source, in parallel) and then runs seven phases,
 each failing loudly:
 
 1. device: the card's name and power limit, and the kernels' build time;
@@ -29,7 +29,23 @@ each failing loudly:
 6. each kernel's time against its plain version's and its bound, on both
    paths for K1-K4; for K6 the dense operator product it replaces; and the
    whole diffmap at 2048 and 1024 px both ways, through K5 and through
-   the prologue, K4 and the eager epilogue.
+   the prologue, K4 and the eager epilogue;
+7. the single-pair API and the codec-iter loop: the four ``calculate_*``
+   and Butteraugli at 250 nits with no ``device`` on three 512 px
+   candidates (K7 and K8 launch, K2-K4 once per pass at B = 1, K5 and K6
+   never), rescored on the host, and identical pairs; the same calls on two
+   2048 px candidates (K5 launches, and K4 on the 1024 px pass) held to
+   phase 5's batch scores on the card; K7 and K8 against their plain
+   versions on those pairs' inputs and K7 at two ragged shapes;
+   ``run_eval`` over two 512 px images held to an ``EvalSession``'s
+   SSIMULACRA2 column; each ``calculate_*`` timed per call; K7 and K8
+   timed against their plain versions and their bounds; and the bound of
+   K9, which is not ported yet, at the shape its path will give it.
+
+``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
+per size; K7 and K8 launch by launch on one pair at each size (the grid,
+the wrapper's time and the kernel's own device time); and the device's
+busy and idle time during one call of each ``calculate_*`` at each size.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``, with the card's ``nvidia-smi`` line just
@@ -39,6 +55,7 @@ repository, it exits non-zero and prints none of them.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -64,6 +81,14 @@ BIG_PICKS = [50, 95]  # rescored on the host
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # f32 stencils: same arithmetic, same order
 K1_TOL = dict(rtol=1e-4, atol=1e-6)  # partial sums taken in another order
 SCORE_RTOL = {"ssimulacra2": 1e-4, "dssim": 1e-4, "psnr": 1e-4, "butteraugli": 5e-4}
+EXACT = dict(rtol=0.0, atol=0.0)  # K7: K6's tile code, K6's order, the same epilogue
+PAIR_PICKS = [5, 50, 100]  # single pairs at 512 px, rescored on the host
+# A single pair on the card against the batch scorer's score of the same
+# candidate: the kernels run the same code at B = 1 as at B = 10; only
+# PyTorch's reductions over a batch may add in another order.
+PAIR_VS_BATCH_RTOL = 1e-6
+# The kernels that only the single-pair path launches: K7 and K8.
+PAIR_ONLY = frozenset({"mask_diff_ac", "scale_features_pair"})
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -86,6 +111,11 @@ PROLOGUE_OPS = 10
 # X/Y terms (4 each), MF B (3), + dac, the three LF terms and their sum (12),
 # the mask combine (6), the sqrt.
 EPILOGUE_OPS = 2 * 7 + 2 + 2 * 4 + 3 + 1 + 12 + 6 + 1
+# K7, per pixel beyond K6's blur: b0 - b1, the product with ac_mul, the square.
+MASK_EPILOGUE_OPS = 3
+# K9 (not ported yet), per channel and pixel: the products x2*x2 and x1*x2,
+# then three 15-tap blurs both ways.
+K9_OPS = 2 + 6 * (15 + 14)
 
 # ---------------------------------------------------------------- the codec
 
@@ -272,6 +302,29 @@ def blur_ops(sigma: float) -> int:
     return 2 * (2 * len(_taps(sigma)) - 1) + 1
 
 
+def device_us(e) -> float:
+    """A profiler event's own device time, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def own_device_ms(fn, kernel: str, calls: int = 10) -> Optional[float]:
+    """Mean device time per call of the CUDA kernels named ``kernel*`` that
+    ``fn`` launches, from ``torch.profiler``: the kernel alone, without the
+    host time between launches that CUDA events over a loop also count.
+    None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / calls if us else None
+
+
 def reset_launches() -> None:
     from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
 
@@ -453,7 +506,8 @@ def phase_slice(
     monotonicity of the scores, that every kernel but those in ``idle``
     launched and those did not, and the card's scores at ``picks`` against
     the host's; times one ``score_batch`` of the whole ladder.  Returns
-    each kernel's launch count during the sweep."""
+    each kernel's launch count during the sweep and the report's scores by
+    quality."""
     import codec_eval_tpu_torch as ce
 
     def decode(data):
@@ -531,7 +585,7 @@ def phase_slice(
         f"({[round(t * 1e3, 3) for t in times]}), {len(batch) / med:.2f} pairs/s, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
     )
-    return launches
+    return launches, rows
 
 
 def phase_kernels_big(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device):
@@ -633,6 +687,306 @@ def phase_oracle(device: torch.device) -> None:
         raise AssertionError("the libjxl oracle gates (0.5% / 2% / 8%) failed")
 
 
+def pair_calls() -> dict:
+    """The single-pair entry points a user calls, with no ``device``."""
+    from codec_eval_tpu_torch import metrics as m
+
+    return {
+        "ssimulacra2": m.calculate_ssimulacra2,
+        "dssim": m.calculate_dssim,
+        "butteraugli": m.calculate_butteraugli,
+        "butteraugli_250": functools.partial(
+            m.calculate_butteraugli_with_intensity, intensity_target=250.0),
+        "psnr": m.calculate_psnr,
+    }
+
+
+def expected_pair_launches(side: int, pairs: int) -> dict:
+    """Launches of ``pairs`` passes of ``pair_calls`` at ``side`` px: per
+    Butteraugli call, K2 and K3 once per image and resolution, K7 once per
+    resolution and K5 or K4 as the size route gives; per SSIMULACRA2 call,
+    K8 once per scale; nothing else."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+
+    fused = sum(ba._fused_diffmap_ok(n, n) for n in (side, (side + 1) // 2))
+    n_ba = 2 * pairs  # calculate_butteraugli and the 250-nit call
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(opsin_xyb=4 * n_ba, bands=4 * n_ba, mask_diff_ac=2 * n_ba,
+                malta_diffmap=fused * n_ba, malta_ac=(2 - fused) * n_ba,
+                scale_features_pair=s2.NUM_SCALES * pairs)
+    return want
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    print(f"  launches {label}: {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def score_pairs(ref_u8: np.ndarray, dists: np.ndarray, **on) -> dict:
+    """{call: [score of each candidate]} through every ``pair_calls`` entry."""
+    return {name: [fn(ref_u8, d, **on) for d in dists] for name, fn in pair_calls().items()}
+
+
+def rel_diff(got: float, want: float) -> float:
+    return 0.0 if got == want else abs(got - want) / max(abs(want), 1e-30)
+
+
+def pair_kernel_inputs(ref_u8: np.ndarray, dist_u8: np.ndarray, device) -> tuple:
+    """What K7 and K8 take on the single pair's path: K7's (d1, b0) at full
+    and half resolution, and K8's four planes at every SSIMULACRA2 scale."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
+    from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
+
+    ref = torch.from_numpy(ref_u8).to(device)
+    dist = torch.from_numpy(dist_u8).to(device)
+    lin0, lin1 = ba._planar_linear(ref), ba._planar_linear(dist)[None]
+    pre = ba.precompute_butteraugli_reference(lin0)
+    it = float(np.float32(pre.params.intensity_target))
+    k7 = []
+    for mask_pre, lin in ((pre.mask_full, lin1), (pre.mask_sub, ba._subsample2x(lin1))):
+        pi1 = ba._psycho_batch(lin * it)
+        d1 = ba._diff_precompute(ba._combine_channels_for_masking(pi1)).contiguous()
+        k7.append((d1, mask_pre[0].contiguous()))
+    ref_s2 = s2.precompute_reference(ref)
+    k8, linear = [], torch.movedim(srgb_u8_to_linear(dist), -1, 0).contiguous()
+    for scale in range(s2.NUM_SCALES):
+        if scale:
+            linear = s2.downscale_by_2(linear)
+        xyb2 = s2._to_positive_xyb(linear).contiguous()
+        k8.append((ref_s2.xyb[scale], ref_s2.mu[scale], ref_s2.sqblur[scale], xyb2))
+    return k7, k8
+
+
+def pair_checks(k7: list, k8: list, label: str) -> dict:
+    """K7 (exactly) and K8 (within K1_TOL) against their plain versions on a
+    single pair's inputs; the checks phase 7 times, at full resolution."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.cuda import maskac, scale_features
+
+    mul, sigma = ba._MASK_DIFF_AC_MUL, ba.SIGMA_MASK
+    k7_err = 0.0
+    for d1, b0 in k7:
+        b, h, w = d1.shape
+        k7_err = max(k7_err, compare(
+            f"K7 mask_diff_ac {label} {b}x{h}x{w}", maskac.mask_diff_ac_batch(d1, b0, mul, sigma),
+            maskac.mask_diff_ac_plain(d1, b0, mul, sigma), **EXACT))
+    d1, b0 = k7[0]
+    k8_err, moved, ops = 0.0, 0, 0
+    tw, th = scale_features.TILE
+    for a in k8:
+        _, sh, sw = a[3].shape
+        k8_err = max(k8_err, compare(
+            f"K8 scale_features {label} {sw}px", scale_features.scale_features(*a),
+            scale_features.scale_features_plain(*a), **K1_TOL))
+        moved += nbytes(*a) + 3 * -(-sh // th) * -(-sw // tw) * 6 * 4
+        ops += K1_OPS * a[3].numel()
+    torch.cuda.synchronize()
+    return {
+        "mask_diff_ac": Check(
+            k7_err,
+            lambda: maskac.mask_diff_ac_batch(d1, b0, mul, sigma),
+            lambda: maskac.mask_diff_ac_plain(d1, b0, mul, sigma),
+            2 * nbytes(d1) + 2 * nbytes(b0),  # d1 and out; b0 and the reciprocal plane
+            (blur_ops(sigma) + MASK_EPILOGUE_OPS) * d1.numel(),
+            f"{d1.shape[-1]} px, B=1",
+        ),
+        "scale_features_pair": Check(
+            k8_err,
+            lambda: [scale_features.scale_features(*a) for a in k8],
+            lambda: [scale_features.scale_features_plain(*a) for a in k8],
+            moved, ops, f"{k8[0][3].shape[-1]} px, one pair, six scales",
+        ),
+    }
+
+
+def pair_grid_times(k7: list, k8: list, label: str) -> None:
+    """Each K7 and K8 launch of a single pair: its grid, the wrapper's time
+    (CUDA events over 10 calls, host overhead between launches included)
+    and the kernel's own device time (profiler)."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.cuda import maskac, scale_features
+
+    def show(name, shape, blocks, fn, kernel):
+        own = own_device_ms(fn, kernel)
+        own = "not measured" if own is None else f"{own:.4f} ms"
+        print(f"    {name} {label} {shape}: grid {blocks} blocks, "
+              f"wrapper {time_ms(fn, 10):.4f} ms, kernel alone {own}")
+
+    for d1, b0 in k7:
+        _, h, w = d1.shape
+        show("K7", f"{w} px", -(-w // 64) * -(-h // 32),
+             lambda: maskac.mask_diff_ac_batch(d1, b0, ba._MASK_DIFF_AC_MUL, ba.SIGMA_MASK),
+             "mask_diff_ac_kernel")
+    tw, th = scale_features.TILE
+    for a in k8:
+        _, h, w = a[3].shape
+        show("K8", f"{w} px", 3 * -(-w // tw) * -(-h // th),
+             lambda: scale_features.scale_features(*a), "scale_features_kernel")
+
+
+def check_k7_ragged(device) -> None:
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.cuda import maskac
+
+    rng = np.random.default_rng(SEED)
+    for b, h, w in ((2, 37, 53), (1, 67, 653)):
+        d1 = torch.from_numpy(rng.random((b, h, w), np.float32) * 10.0).to(device)
+        b0 = torch.from_numpy(rng.random((h, w), np.float32) * 10.0).to(device)
+        args = (d1, b0, ba._MASK_DIFF_AC_MUL, ba.SIGMA_MASK)
+        compare(f"K7 mask_diff_ac {b}x{h}x{w}", maskac.mask_diff_ac_batch(*args),
+                maskac.mask_diff_ac_plain(*args), **EXACT)
+
+
+def time_pair_calls(ref_u8: np.ndarray, dist_u8: np.ndarray) -> dict:
+    """Each ``calculate_*`` per call on the card, host clock: median of 5
+    after a warm-up (the reference precompute and the copies included)."""
+    out = {}
+    for name, fn in pair_calls().items():
+        fn(ref_u8, dist_u8)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(ref_u8, dist_u8)
+            times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times) * 1e3
+    side = ref_u8.shape[0]
+    print(f"  calculate_* at {side}px, ms per call (median of 5): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def phase_single_pair(
+    ref_u8: np.ndarray, big_u8: np.ndarray, big: np.ndarray, big_rows: dict, device
+) -> tuple:
+    """Part 1-3 of phase 7: single pairs at 512 and 2048 px with the launch
+    counts read around them, the host (512) and the batch scorer (2048) as
+    references, and K7 and K8 against their plain versions on the pairs'
+    inputs.  ``big`` holds the decodes of ``big_u8`` at ``BIG_PICKS``.
+    Returns the checks at 512 and 2048, the launch counts, and K7's and K8's
+    inputs at both sizes."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
+
+    cands = candidates(ref_u8, PAIR_PICKS)
+    reset_launches()
+    card = score_pairs(ref_u8, cands)
+    launches = read_launches()
+    check_launches(f"of the single pairs at {SIZE}px", launches,
+                   expected_pair_launches(SIZE, len(PAIR_PICKS)))
+    t0 = time.perf_counter()
+    host = score_pairs(ref_u8, cands, device="cpu")
+    print(f"  host rescoring of q{PAIR_PICKS}: {time.perf_counter() - t0:.2f} s")
+    for name, scores in card.items():
+        metric = name.split("_")[0]
+        for q, g, w in zip(PAIR_PICKS, scores, host[name]):
+            rel = rel_diff(g, w)
+            print(f"    q{q} {name}: card {g!r} host {w!r} rel {rel:.3e}")
+            if not np.isfinite(g) or rel > SCORE_RTOL[metric]:
+                raise AssertionError(f"q{q} {name}: card {g!r} vs host {w!r}")
+    same = {name: fn(ref_u8, ref_u8.copy()) for name, fn in pair_calls().items()}
+    print(f"  identical pair: {same}")
+    if same != {"ssimulacra2": 100.0, "dssim": 0.0, "butteraugli": 0.0, "butteraugli_250": 0.0,
+                "psnr": float("inf")}:
+        raise AssertionError(f"identical pairs scored {same}")
+
+    reset_launches()
+    card_big = score_pairs(big_u8, big)
+    launches_big = read_launches()
+    check_launches(f"of the single pairs at {BIG}px", launches_big,
+                   expected_pair_launches(BIG, len(BIG_PICKS)))
+    # The batch scorer's scores of the same candidates: phase 5's report,
+    # and Butteraugli at 250 nits through the batch path on the card.
+    ref_t = torch.from_numpy(big_u8).to(device)
+    lin_ref = torch.movedim(srgb_u8_to_linear(ref_t), -1, 0).contiguous()
+    lin = srgb_u8_to_linear(torch.from_numpy(np.ascontiguousarray(np.moveaxis(big, -1, 1)))
+                            .to(device))
+    pre250 = ba.precompute_butteraugli_reference(lin_ref, ba.ButteraugliParams(
+        intensity_target=250.0))
+    batch250 = ba.butteraugli_batch(pre250, lin).cpu().tolist()
+    worst = 0.0
+    for name, scores in card_big.items():
+        for i, (q, g) in enumerate(zip(BIG_PICKS, scores)):
+            w = batch250[i] if name == "butteraugli_250" else getattr(big_rows[q], name)
+            rel = rel_diff(g, w)
+            worst = max(worst, rel)
+            print(f"    q{q} {name}: pair {g!r} batch {w!r} rel {rel:.3e}")
+            if rel > PAIR_VS_BATCH_RTOL:
+                raise AssertionError(f"q{q} {name}: single pair {g!r} vs batch {w!r}")
+    print(f"  largest relative difference, single pair vs batch at {BIG}px: {worst:.3e}")
+
+    print("  K7 and K8 against their plain versions on the single pairs' inputs")
+    small, large = (pair_kernel_inputs(ref_u8, cands[1], device),
+                    pair_kernel_inputs(big_u8, big[0], device))
+    checks = pair_checks(*small, f"{SIZE}")
+    checks_big = pair_checks(*large, f"{BIG}")
+    check_k7_ragged(device)
+    return checks, checks_big, launches, launches_big, small, large
+
+
+def k9_bound(side: int) -> tuple:
+    """The bound of K9's function (``pallas/moments.py``, not ported yet) on
+    one pair's six SSIMULACRA2 scales from ``side`` px, the masked scorer's
+    moment stage: per channel and pixel two planes read and three written."""
+    px, n = 0, side
+    for _ in range(6):
+        px, n = px + n * n, (n + 1) // 2
+    moved, ops = 3 * px * (2 + 3) * 4, K9_OPS * 3 * px
+    return (*bound(moved, ops), moved, ops)
+
+
+def phase_run_eval(report_dir: Path, rows: dict) -> None:
+    """Part 4 of phase 7: ``run_eval`` over two 512 px images through the
+    block-DCT codec, on the card by default, against an ``EvalSession``'s
+    SSIMULACRA2 column for the same images and qualities: phase 3's report
+    (``rows``) for the first, a session of its own for the second."""
+    import codec_eval_tpu_torch as ce
+    from codec_eval_tpu_torch import iter as ci
+
+    def encode(rgb, quality):
+        return dct_encode(ce.ImageData.rgb8(rgb), ce.EncodeRequest(quality=quality))
+
+    images = [ci.SourceImage(f"seed{s}", make_image(SIZE, s)) for s in (SEED, SEED + 1)]
+    codec = ci.Codec(encode, dct_decode_array, "dct-q")
+    reset_launches()
+    t0 = time.perf_counter()
+    result = ci.run_eval(images, codec, QUALITIES)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = dict.fromkeys(launches, 0)
+    want["scale_features"] = 6 * len(images)
+    check_launches("of run_eval", launches, want)
+    n = len(result.points)
+    print(f"  run_eval of {len(images)} x {len(QUALITIES)} at {SIZE}px on the card: "
+          f"{wall:.3f} s wall ({result.total_ms} ms by its clock), {n / wall:.2f} pairs/s "
+          f"(host codec included)")
+
+    config = (ce.EvalConfig.builder().report_dir(report_dir)
+              .metrics(ce.MetricConfig(ssimulacra2=True)).quality_levels(QUALITIES).build())
+    session = ce.EvalSession(config)
+    session.add_codec_with_decode("dct-q", "1", dct_encode,
+                                  lambda data: ce.ImageData.rgb8(dct_decode_array(data)))
+    worst = 0.0
+    for i, src in enumerate(images):
+        if i:
+            report = session.evaluate_image(src.name, ce.ImageData.rgb8(src.rgb))
+            column = {r.quality: r.metrics.ssimulacra2 for r in report.results}
+        else:
+            column = {q: m.ssimulacra2 for q, m in rows.items()}
+        for p in result.points:
+            if p.image == src.name:
+                rel = rel_diff(p.ssim2, column[p.quality])
+                worst = max(worst, rel)
+                if rel > PAIR_VS_BATCH_RTOL:
+                    raise AssertionError(f"{p.image} q{p.quality}: run_eval {p.ssim2!r} vs "
+                                         f"session {column[p.quality]!r}")
+    print(f"  run_eval's ssim2 against the session's SSIMULACRA2 column: "
+          f"largest relative difference {worst:.3e}")
+
+
 def time_check(label: str, c: Check) -> dict:
     """Kernel, plain and library device times of one check, in turns."""
     p1, k1, k2, p2 = (time_ms(f, 10) for f in (c.plain, c.kernel, c.kernel, c.plain))
@@ -662,9 +1016,6 @@ def profile(ref_u8: np.ndarray, batch: np.ndarray) -> None:
         scorer.score_batch(ref_u8, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # Device-side events are the kernels and copies; the operators that
     # launched them carry the same time again.  The profiler's own buffer
@@ -704,6 +1055,31 @@ def profile(ref_u8: np.ndarray, batch: np.ndarray) -> None:
         print(f"  {metric} alone: median {statistics.median(times) * 1e3:.3f} ms of 3")
 
 
+def profile_pairs(ref_u8: np.ndarray, dist_u8: np.ndarray) -> None:
+    """``torch.profiler`` over one call of each ``calculate_*`` after a
+    warm-up: wall (under the profiler), device busy time, idle share and the
+    number of device operations (kernels and copies)."""
+    from torch.profiler import ProfilerActivity
+
+    for name, fn in pair_calls().items():
+        fn(ref_u8, dist_u8)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        ) as prof:
+            t0 = time.perf_counter()
+            fn(ref_u8, dist_u8)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith("Activity Buffer")]
+        busy = sum(device_us(e) for e in on_device) / 1e3
+        print(f"  {name} at {ref_u8.shape[0]}px: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+              f"idle {100 * (1 - busy / wall):.1f} %, "
+              f"{sum(e.count for e in on_device)} device operations")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -733,8 +1109,8 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"[3] EvalSession sweep on {device}: {len(QUALITIES)} qualities at {SIZE}px")
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_slice(ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
-                               idle={"malta_diffmap", "blur"})
+        launches, rows_512 = phase_slice(ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
+                                         idle={"malta_diffmap", "blur", *PAIR_ONLY})
     done(3, t0)
 
     t0 = time.perf_counter()
@@ -747,7 +1123,8 @@ def main() -> int:
     print(f"[5] EvalSession sweep with the default device: {len(BIG_QUALITIES)} qualities "
           f"at {BIG}px")
     with tempfile.TemporaryDirectory() as tmp:
-        launches_big = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp), None, idle=set())
+        launches_big, big_rows = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp), None,
+                                             idle=PAIR_ONLY)
     big_batch = candidates(big_u8, BIG_QUALITIES)
     print(f"  kernels vs plain on the {BIG} px sweep's inputs")
     checks_big = phase_kernels(big_u8, big_batch, device)
@@ -759,6 +1136,8 @@ def main() -> int:
     print(f"[6] device time, mean of 10 (plain, kernel, kernel, plain) | {card}")
     rows = []
     for name, fn in WRAPPERS.items():
+        if name in PAIR_ONLY:
+            continue  # K7 and K8 run on phase 7's path, and are timed there
         # Each kernel's row is timed on the path it was ported for (K1-K4 at
         # 512 px, K5 and K6 at 2048 px); its error is the worst of both paths.
         small, big = checks.get(name), checks_big[name]
@@ -783,12 +1162,44 @@ def main() -> int:
               f"max |difference| {diff:.3e}")
     done(6, t0)
 
+    t0 = time.perf_counter()
+    print(f"[7] the single-pair API and the codec-iter loop, no device given | {card}")
+    picks = big_batch[[BIG_QUALITIES.index(q) for q in BIG_PICKS]]
+    pair, pair_big, launches_pair, launches_pair_big, k78, k78_big = phase_single_pair(
+        ref_u8, big_u8, picks, big_rows, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_run_eval(Path(tmp), rows_512)
+    pick = candidates(ref_u8, [50])[0]
+    time_pair_calls(ref_u8, pick)
+    time_pair_calls(big_u8, big_batch[0])
+    for name in sorted(PAIR_ONLY, key=list(WRAPPERS).index):
+        fn, small, big = WRAPPERS[name], pair[name], pair_big[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": fn.source, "replaces": fn.replaces,
+            "launches": launches_pair[name], "max_abs_err": max(small.err, big.err),
+            **time_check(name, small), "shapes": small.shapes,
+            "launches_512": launches_pair[name], "launches_2048": launches_pair_big[name],
+            "max_abs_err_512": small.err, "max_abs_err_2048": big.err,
+            "at_2048": time_check(f"{name} on the {BIG} px single pair", big),
+        })
+    k9_ms, k9_by, k9_bytes, k9_ops = k9_bound(SIZE)
+    print(f"  K9 candidate_moments, not ported: bound at {SIZE} px, one pair, six scales "
+          f"{k9_ms:.4f} ms by {k9_by} ({k9_bytes / 1e6:.1f} MB, {k9_ops / 1e9:.3f} Gop)")
+    done(7, t0)
+
     if "--profile" in sys.argv[1:]:
         t0 = time.perf_counter()
         for image, batch in ((ref_u8, candidates(ref_u8, QUALITIES)), (big_u8, big_batch)):
             print(f"[profile] one score_batch of {len(batch)} at {image.shape[0]}px | {card}")
             profile(image, batch)
-        done(7, t0)
+        print(f"[profile] K7 and K8 launch by launch, one pair (q{PAIR_PICKS[1]} at {SIZE}px, "
+              f"q{BIG_PICKS[0]} at {BIG}px) | {card}")
+        pair_grid_times(*k78, f"{SIZE}")
+        pair_grid_times(*k78_big, f"{BIG}")
+        print(f"[profile] one call of each calculate_* (q50) | {card}")
+        profile_pairs(ref_u8, pick)
+        profile_pairs(big_u8, big_batch[0])
+        done(8, t0)
 
     torch.cuda.synchronize()
     print(f"  total: {time.perf_counter() - start:.2f} s")

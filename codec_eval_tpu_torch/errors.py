@@ -1,4 +1,4 @@
-"""The error types the session and scorer raise, copied from
+"""The error types the session, the scorer and the metrics raise, copied from
 ``codec_eval_tpu/errors.py`` (the port imports nothing from the JAX
 package).  reference: src/error.rs:12-100."""
 
@@ -27,6 +27,13 @@ class DimensionMismatch(CodecEvalError):
         super().__init__(f"dimension mismatch: expected {expected}, got {actual}")
         self.expected = expected
         self.actual = actual
+
+
+class MetricCalculationError(CodecEvalError):
+    def __init__(self, metric: str, reason: str):
+        super().__init__(f"metric '{metric}': {reason}")
+        self.metric = metric
+        self.reason = reason
 
 
 class InvalidQuality(CodecEvalError):

@@ -1,7 +1,7 @@
-"""Butteraugli psychovisual distance: the batched scoring path.
+"""Butteraugli psychovisual distance: the batched and the single-pair paths.
 
-Port of the batch path of ``codec_eval_tpu/kernels/butteraugli.py`` (the
-public butteraugli model shipped in libjxl), two resolutions:
+Port of ``codec_eval_tpu/kernels/butteraugli.py`` (the public butteraugli
+model shipped in libjxl), two resolutions:
 
 1. opsin dynamics -- K2 (``cuda/freqsep.py``);
 2. frequency separation -- the sigma-7.16 LF blur as a dense row-normalized
@@ -18,24 +18,31 @@ public butteraugli model shipped in libjxl), two resolutions:
 On planes of 1400 px and more, steps 3 and 5's per-pixel distance run as
 one kernel, K5 (``cuda/malta.py``), as the JAX package routes them.
 
+A single pair (``butteraugli``, ``butteraugli_distmap``, ...) takes the
+batch path at B = 1, except for the candidate's masking term: at every size
+it runs as K7 (``cuda/maskac.py``), the sigma-2.7 blur and the squared
+difference fused, so the batch's K6 / dense-operator route is left as it is.
+
 On CUDA tensors both the reference and the candidate side run through the
 kernels; on CPU tensors every kernel wrapper takes its plain version.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .color import rdiv
+from .color import rdiv, srgb_u8_to_linear
 from .cuda.blur import blur_batch
 from .cuda.freqsep import bands_batch, opsin_xyb_batch
 from .cuda.malta import l2_asymmetric, malta_ac_batch, malta_diffmap_batch, malta_prologue
+from .cuda.maskac import mask_diff_ac_batch
 
 SIGMA_LF = 7.1559334
 SIGMA_MASK = 2.7
@@ -361,6 +368,17 @@ def _mask_diff_ac_batch(pi1_batch: PsychoImage, b0: torch.Tensor) -> torch.Tenso
     return _MASK_DIFF_AC_MUL * (b0 - b1) * (b0 - b1)
 
 
+def _mask_diff_ac_pair(pi1_batch: PsychoImage, b0: torch.Tensor) -> torch.Tensor:
+    """The single pair's masking term, (1, H, W): K7 at every size."""
+    d1 = _diff_precompute(_combine_channels_for_masking(pi1_batch)).contiguous()
+    return mask_diff_ac_batch(d1, b0.contiguous(), _MASK_DIFF_AC_MUL, SIGMA_MASK)
+
+
+#: How a path computes its candidates' masking term: (B-stacked
+#: PsychoImage, the reference's (H, W) blur b0) -> (B, H, W).
+MaskTerm = Callable[[PsychoImage, torch.Tensor], torch.Tensor]
+
+
 # ----------------------------------------------------------------- diffmap
 
 
@@ -516,8 +534,11 @@ def precompute_butteraugli_reference(
     )
 
 
-def _resolve(ref_pi: PsychoImage, pi1: PsychoImage, mask_pre, params: ButteraugliParams):
-    dac = _mask_diff_ac_batch(pi1, mask_pre[0])
+def _resolve(
+    ref_pi: PsychoImage, pi1: PsychoImage, mask_pre, params: ButteraugliParams,
+    mask_term: MaskTerm,
+):
+    dac = mask_term(pi1, mask_pre[0])
     h, w = dac.shape[-2], dac.shape[-1]
     if _fused_diffmap_ok(h, w):
         return malta_diffmap_batch(
@@ -531,18 +552,100 @@ def _resolve(ref_pi: PsychoImage, pi1: PsychoImage, mask_pre, params: Butteraugl
     )
 
 
+def butteraugli_distmap_batch(
+    ref: ButteraugliReference, lin_full: torch.Tensor, mask_term: MaskTerm
+) -> torch.Tensor:
+    """(N, H, W) distance maps of candidates given as (N, 3, H, W) linear
+    RGB against one precomputed reference, with ``mask_term`` computing the
+    candidates' masking term.  Images under 8 px on a side give zero maps."""
+    h, w = ref.shape
+    if h < 8 or w < 8:
+        return torch.zeros((lin_full.shape[0], h, w), dtype=torch.float32, device=lin_full.device)
+    it = float(np.float32(ref.params.intensity_target))
+    pi1f = _psycho_batch(lin_full * it)
+    result = _resolve(ref.pi0_full, pi1f, ref.mask_full, ref.params, mask_term)
+    if ref.pi0_sub is not None:
+        pi1s = _psycho_batch(_subsample2x(lin_full) * it)
+        sub = _resolve(ref.pi0_sub, pi1s, ref.mask_sub, ref.params, mask_term)
+        result = _add_supersampled2x(result, sub)
+    return result
+
+
 def butteraugli_batch(ref: ButteraugliReference, lin_full: torch.Tensor) -> torch.Tensor:
     """Scores of candidates given as (N, 3, H, W) linear RGB against one
     precomputed reference.  Images under 8 px on a side score 0."""
-    h, w = ref.shape
-    n = lin_full.shape[0]
-    if h < 8 or w < 8:
-        return torch.zeros((n,), dtype=torch.float32, device=lin_full.device)
-    it = float(np.float32(ref.params.intensity_target))
-    pi1f = _psycho_batch(lin_full * it)
-    result = _resolve(ref.pi0_full, pi1f, ref.mask_full, ref.params)
-    if ref.pi0_sub is not None:
-        pi1s = _psycho_batch(_subsample2x(lin_full) * it)
-        sub = _resolve(ref.pi0_sub, pi1s, ref.mask_sub, ref.params)
-        result = _add_supersampled2x(result, sub)
-    return torch.amax(result, dim=(-2, -1))
+    maps = butteraugli_distmap_batch(ref, lin_full, _mask_diff_ac_batch)
+    return torch.amax(maps, dim=(-2, -1))
+
+
+# ------------------------------------------------------------ single pairs
+
+
+def _planar_linear(u8: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) u8 sRGB -> (3, H, W) linear RGB."""
+    return torch.movedim(srgb_u8_to_linear(u8), -1, 0).contiguous()
+
+
+def butteraugli_distmap_against(
+    ref: ButteraugliReference,
+    dist_u8: torch.Tensor,
+    intensity_target: float = 80.0,
+    hf_asymmetry: float = 0.8,
+) -> torch.Tensor:
+    """Distance map of one (H, W, 3) u8 candidate against a precomputed
+    reference.  As in the JAX package, the intensity target is the one the
+    reference was computed with; ``intensity_target`` is accepted and unused."""
+    del intensity_target
+    ref = dataclasses.replace(
+        ref, params=dataclasses.replace(ref.params, hf_asymmetry=hf_asymmetry)
+    )
+    return butteraugli_distmap_batch(ref, _planar_linear(dist_u8)[None], _mask_diff_ac_pair)[0]
+
+
+def butteraugli_against_reference(
+    ref: ButteraugliReference,
+    dist_u8: torch.Tensor,
+    intensity_target: float = 80.0,
+    hf_asymmetry: float = 0.8,
+) -> torch.Tensor:
+    return torch.amax(butteraugli_distmap_against(ref, dist_u8, intensity_target, hf_asymmetry))
+
+
+def butteraugli_distmap(
+    ref_u8: torch.Tensor,
+    dist_u8: torch.Tensor,
+    intensity_target: float = 80.0,
+    hf_asymmetry: float = 0.8,
+    params: Optional[ButteraugliParams] = None,
+) -> torch.Tensor:
+    """Per-pixel distance map of one (H, W, 3) u8 sRGB pair."""
+    if params is None:
+        params = ButteraugliParams(hf_asymmetry=hf_asymmetry, intensity_target=intensity_target)
+    ref = precompute_butteraugli_reference(_planar_linear(ref_u8), params)
+    return butteraugli_distmap_batch(ref, _planar_linear(dist_u8)[None], _mask_diff_ac_pair)[0]
+
+
+def butteraugli(
+    ref_u8: torch.Tensor,
+    dist_u8: torch.Tensor,
+    intensity_target: float = 80.0,
+    hf_asymmetry: float = 0.8,
+    params: Optional[ButteraugliParams] = None,
+) -> torch.Tensor:
+    """Max-norm distance of one pair; byte-identical pairs score exactly 0.
+    reference: src/metrics/butteraugli.rs:45, :99."""
+    dmap = butteraugli_distmap(ref_u8, dist_u8, intensity_target, hf_asymmetry, params)
+    score = torch.amax(dmap)
+    return torch.where(torch.all(ref_u8 == dist_u8), torch.zeros_like(score), score)
+
+
+def butteraugli_pnorm(
+    ref_u8: torch.Tensor,
+    dist_u8: torch.Tensor,
+    p: float = 3.0,
+    intensity_target: float = 80.0,
+    hf_asymmetry: float = 0.8,
+) -> torch.Tensor:
+    """p-norm of the distance map (the jxl-style aggregate)."""
+    dmap = butteraugli_distmap(ref_u8, dist_u8, intensity_target, hf_asymmetry)
+    return torch.pow(torch.mean(torch.pow(torch.clamp(dmap, min=0.0), p)), 1.0 / p)

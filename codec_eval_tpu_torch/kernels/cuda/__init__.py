@@ -9,6 +9,8 @@ in a ``launches`` attribute.  ``source`` names its CUDA file and
 from .blur import blur_batch
 from .freqsep import bands_batch, opsin_xyb_batch
 from .malta import malta_ac_batch, malta_diffmap_batch
+from . import scale_features  # the module: K8's wrapper shares its name
+from .maskac import mask_diff_ac_batch
 from .scale_features import scale_features_batch
 
 #: Every kernel wrapper of the port, by kernel name.
@@ -19,4 +21,6 @@ WRAPPERS = {
     "malta_ac": malta_ac_batch,
     "malta_diffmap": malta_diffmap_batch,
     "blur": blur_batch,
+    "mask_diff_ac": mask_diff_ac_batch,
+    "scale_features_pair": scale_features.scale_features,
 }

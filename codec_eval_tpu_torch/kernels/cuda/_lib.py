@@ -6,7 +6,7 @@ shared library with a plain C interface under ``build/kernels/`` at the
 repository root.  The library's name carries a hash of the sources and the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 It is bound with ``ctypes``: every pointer and the CUDA stream travel as
-``c_void_p``, every size as ``c_int``, and every entry point returns the
+``c_void_p``, every size as ``c_int``, a scalar weight as ``c_float``, and every entry point returns the
 ``cudaError_t`` of its launch, which ``check`` turns into an exception.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -39,6 +39,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 #: C entry points: name -> argtypes.  Each returns ``int`` (cudaError_t).
 SIGNATURES = {
@@ -55,6 +56,8 @@ SIGNATURES = {
     "ce_malta_diffmap": (P, P, P, P, P, P, P, I, I, I, P, P, I, I, P, P, P),
     # planes, recip, out, n, h, w, taps, ntaps, stream
     "ce_blur": (P, P, P, I, I, I, P, I, P),
+    # d1, b0, recip, out, b, h, w, taps, ntaps, ac_mul, stream
+    "ce_mask_diff_ac": (P, P, P, P, I, I, I, P, I, F, P),
 }
 
 

@@ -9,6 +9,12 @@ On a CUDA tensor it launches the hand-written kernel
 this wrapper adds them and forms the norms, as the JAX wrapper does.  On a
 CPU tensor it runs ``scale_features_plain``, the port of
 ``codec_eval_tpu/kernels/ssimulacra2.py:_scale_features``.
+
+K8, ``scale_features``, is the counterpart of the single-pair
+``scale_features_pallas``: (3, H, W) planes -> (3, 2, 3).  The Pallas
+kernel differs from the batched one only in how its grid carries the batch
+(ANY-space inputs and VMEM limits), not in what it computes, so K8 launches
+the same CUDA kernel at N = 1, under its own wrapper and launch counter.
 """
 
 from __future__ import annotations
@@ -68,12 +74,8 @@ def scale_features_plain(
     return torch.stack([one, four], dim=-2)
 
 
-def scale_features_batch(
-    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor
-) -> torch.Tensor:
-    """K1.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if xyb2.device.type == "cpu":
-        return scale_features_plain(xyb1, mu1, s11, xyb2)
+def _launch(xyb1, mu1, s11, xyb2: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel on (N, 3, H, W) candidates -> (N, 3, 2, 3)."""
     _lib.require_cuda("xyb2", xyb2, (None, 3, None, None))
     n, _, h, w = xyb2.shape
     for name, t in (("xyb1", xyb1), ("mu1", mu1), ("s11", s11)):
@@ -92,10 +94,38 @@ def scale_features_batch(
             _lib.ptr(partial), n, h, w, _lib.ptr(taps), _lib.stream(dev),
         )
     _lib.check(rc, "ce_scale_features")
-    scale_features_batch.launches += 1
     return _norms(partial.sum(dim=2), h * w)
+
+
+def scale_features_batch(
+    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor
+) -> torch.Tensor:
+    """K1.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if xyb2.device.type == "cpu":
+        return scale_features_plain(xyb1, mu1, s11, xyb2)
+    out = _launch(xyb1, mu1, s11, xyb2)
+    scale_features_batch.launches += 1
+    return out
 
 
 scale_features_batch.launches = 0
 scale_features_batch.source = "codec_eval_tpu_torch/csrc/scale_features.cu"
 scale_features_batch.replaces = "codec_eval_tpu/kernels/pallas/scale_features.py:407"
+
+
+def scale_features(
+    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor
+) -> torch.Tensor:
+    """K8: one pair's (3, H, W) planes -> (3, 2, 3).  Plain version on CPU
+    tensors; the CUDA kernel at N = 1 on CUDA tensors."""
+    if xyb2.device.type == "cpu":
+        return scale_features_plain(xyb1, mu1, s11, xyb2)
+    _lib.require_cuda("xyb2", xyb2, (3, None, None))
+    out = _launch(xyb1, mu1, s11, xyb2[None])[0]
+    scale_features.launches += 1
+    return out
+
+
+scale_features.launches = 0
+scale_features.source = "codec_eval_tpu_torch/csrc/scale_features.cu"
+scale_features.replaces = "codec_eval_tpu/kernels/pallas/scale_features.py:209"

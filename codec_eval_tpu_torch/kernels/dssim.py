@@ -5,7 +5,8 @@ semantic defaults fixed: one pass of the 3-tap window and ceil-with-edge-
 clamp downscaling.  Linear RGB -> scaled Lab; chroma at half resolution and
 half weight; a separable 3-tap edge-replicated window; a 5-scale 2x2 box
 pyramid with the MS-SSIM weights; per scale and channel the mean SSIM;
-then ``1/ssim - 1``.  Every function takes leading batch axes.
+then ``1/ssim - 1``.  Every function takes leading batch axes; ``dssim``
+and ``dssim_u8`` score one pair.
 
 The Lab planes and everything after them are computed in f64 and the score
 is returned in f32.  The SSIM map's variance terms (E[x^2] - E[x]^2 against
@@ -23,7 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from .blur import downscale_by_2
-from .color import cbrt, rdiv
+from .color import cbrt, rdiv, srgb_u8_to_linear
 
 BLUR_PASSES = 1
 DOWNSCALE = "ceil"
@@ -143,3 +144,19 @@ def dssim_against_reference(ref: DssimReference, dist_linear: torch.Tensor) -> t
         luma_means.append(_ssim_means(l1, lmu, lsq, luma2))
         chroma_means.append(_ssim_means(c1, cmu, csq, chroma2))
     return _aggregate(luma_means, chroma_means).to(torch.float32)
+
+
+def dssim(ref_linear: torch.Tensor, dist_linear: torch.Tensor) -> torch.Tensor:
+    """DSSIM of one pair of linear-light RGB images, (3, H, W) planes or
+    (H, W, 3); 0 for identical buffers."""
+    if ref_linear.ndim == 3 and ref_linear.shape[-1] == 3:
+        ref_linear = torch.movedim(ref_linear, -1, 0)
+        dist_linear = torch.movedim(dist_linear, -1, 0)
+    val = dssim_against_reference(precompute_dssim_reference(ref_linear), dist_linear)
+    return torch.where(torch.all(ref_linear == dist_linear), torch.zeros_like(val), val)
+
+
+def dssim_u8(ref_u8: torch.Tensor, dist_u8: torch.Tensor) -> torch.Tensor:
+    """DSSIM of one (H, W, 3) u8 sRGB pair, linearized as the reference's
+    ``rgb8_to_dssim_image`` does (src/metrics/dssim.rs:102)."""
+    return dssim(srgb_u8_to_linear(ref_u8), srgb_u8_to_linear(dist_u8))

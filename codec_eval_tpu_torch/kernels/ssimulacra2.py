@@ -6,7 +6,9 @@ Gaussian windowed SSIM and ringing / detail-loss maps -> 1- and 4-norm
 pooling -> 108-feature weighted score.  The reference side (pyramid, XYB,
 mu1, s11) is computed once per image; each scale's candidate side runs as
 one K1 call over the whole batch (``cuda/scale_features.py``), the path of
-the JAX package's ``_ssimulacra2_batch_pallas``.
+the JAX package's ``_ssimulacra2_batch_pallas``.  A single pair
+(``ssimulacra2``, ``features_from_linear``) runs each scale through K8, the
+single-pair form, as the JAX package's ``scale_features_pallas`` route.
 """
 
 from __future__ import annotations
@@ -18,7 +20,12 @@ import torch
 from . import ssimulacra2_weights as W
 from .blur import blur_separable, downscale_by_2
 from .color import linear_rgb_to_xyb, srgb_u8_to_linear
-from .cuda.scale_features import SIGMA, scale_features_batch, scale_features_plain
+from .cuda.scale_features import (
+    SIGMA,
+    scale_features,
+    scale_features_batch,
+    scale_features_plain,
+)
 
 NUM_SCALES = 6
 
@@ -47,11 +54,13 @@ def precompute_reference(
     ref_u8: torch.Tensor, lin_planar: torch.Tensor | None = None
 ) -> Ssimulacra2Reference:
     """ref_u8: (H, W, 3) uint8 sRGB.  ``lin_planar`` optionally supplies its
-    (3, H, W) linear RGB so callers can share one staging pass."""
+    (3, H, W) linear RGB so callers can share one staging pass.  Without it
+    the planes are staged contiguous, as the batch scorer stages them, so
+    both give the same pyramid to the bit."""
     linear = (
         lin_planar
         if lin_planar is not None
-        else torch.movedim(srgb_u8_to_linear(ref_u8), -1, 0)
+        else torch.movedim(srgb_u8_to_linear(ref_u8), -1, 0).contiguous()
     )
     xybs, mus, sqs = [], [], []
     for scale in range(NUM_SCALES):
@@ -63,6 +72,23 @@ def precompute_reference(
         mus.append(blurred[:3].contiguous())
         sqs.append(blurred[3:].contiguous())
     return Ssimulacra2Reference(xybs, mus, sqs)
+
+
+def features_from_linear(ref: Ssimulacra2Reference, linear: torch.Tensor) -> torch.Tensor:
+    """All 108 features of one candidate given as (3, H, W) linear RGB,
+    channel-major ((3, 6, 2, 3) flattened), each scale through K8."""
+    per_scale = []
+    for scale in range(NUM_SCALES):
+        if scale:
+            linear = downscale_by_2(linear)
+        xyb2 = _to_positive_xyb(linear).contiguous()
+        per_scale.append(scale_features(ref.xyb[scale], ref.mu[scale], ref.sqblur[scale], xyb2))
+    return torch.stack(per_scale, dim=1).reshape(-1)
+
+
+def features_against_reference(ref: Ssimulacra2Reference, dist_u8: torch.Tensor) -> torch.Tensor:
+    """Like ``features_from_linear`` for one (H, W, 3) u8 sRGB candidate."""
+    return features_from_linear(ref, torch.movedim(srgb_u8_to_linear(dist_u8), -1, 0).contiguous())
 
 
 def score_from_features(features: torch.Tensor) -> torch.Tensor:
@@ -93,7 +119,7 @@ def ssimulacra2_batch_pre(
     linear = (
         lin_planar
         if lin_planar is not None
-        else torch.movedim(srgb_u8_to_linear(dist_batch_u8), -1, 1)
+        else torch.movedim(srgb_u8_to_linear(dist_batch_u8), -1, 1).contiguous()
     )
     per_scale = []
     for scale in range(NUM_SCALES):
@@ -107,3 +133,16 @@ def ssimulacra2_batch_pre(
     scores = score_from_features(feats.reshape(feats.shape[0], -1))
     identical = (dist_batch_u8 == ref_u8).flatten(1).all(dim=1)
     return torch.where(identical, torch.full_like(scores, 100.0), scores)
+
+
+def ssimulacra2(ref_u8: torch.Tensor, dist_u8: torch.Tensor) -> torch.Tensor:
+    """Score of one (H, W, 3) u8 sRGB pair; byte-identical pairs score
+    exactly 100.  reference: src/metrics/ssimulacra2.rs:59."""
+    score = score_from_features(features_against_reference(precompute_reference(ref_u8), dist_u8))
+    return torch.where(torch.all(ref_u8 == dist_u8), torch.full_like(score, 100.0), score)
+
+
+def ssimulacra2_batch(ref_u8: torch.Tensor, dist_batch_u8: torch.Tensor) -> torch.Tensor:
+    """Scores of (N, H, W, 3) u8 candidates against one (H, W, 3) reference,
+    the reference precompute shared across the batch (K1 at every scale)."""
+    return ssimulacra2_batch_pre(precompute_reference(ref_u8), ref_u8, dist_batch_u8)

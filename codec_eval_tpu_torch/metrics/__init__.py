@@ -1,8 +1,9 @@
 """Metric configuration, results and perception levels.
 
-A copy of ``codec_eval_tpu/metrics/__init__.py`` without the single-pair
-``calculate`` API (reference: src/metrics/mod.rs:46-331); the per-pixel
-compute lives in ``codec_eval_tpu_torch.kernels`` as PyTorch and CUDA code.
+A copy of ``codec_eval_tpu/metrics/__init__.py`` (reference:
+src/metrics/mod.rs:46-331), with the single-pair ``calculate_*`` API
+re-exported from ``calculate``; the per-pixel compute lives in
+``codec_eval_tpu_torch.kernels`` as PyTorch and CUDA code.
 """
 
 from __future__ import annotations
@@ -192,3 +193,30 @@ class PerceptionLevel(enum.Enum):
 
 
 __all__ = ["MetricConfig", "MetricResult", "PerceptionLevel"]
+
+
+from .calculate import (  # noqa: E402,F401
+    calculate_butteraugli,
+    calculate_butteraugli_icc,
+    calculate_butteraugli_with_intensity,
+    calculate_dssim,
+    calculate_dssim_icc,
+    calculate_psnr,
+    calculate_ssimulacra2,
+    calculate_ssimulacra2_icc,
+    rgb8_to_dssim_image,
+    rgba8_to_dssim_image,
+)
+
+__all__ += [
+    "calculate_butteraugli",
+    "calculate_butteraugli_icc",
+    "calculate_butteraugli_with_intensity",
+    "calculate_dssim",
+    "calculate_dssim_icc",
+    "calculate_psnr",
+    "calculate_ssimulacra2",
+    "calculate_ssimulacra2_icc",
+    "rgb8_to_dssim_image",
+    "rgba8_to_dssim_image",
+]

@@ -28,6 +28,7 @@ from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, _lib
 from codec_eval_tpu_torch.kernels.cuda import blur as tbl
 from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
 from codec_eval_tpu_torch.kernels.cuda import malta as tml
+from codec_eval_tpu_torch.kernels.cuda import maskac as tmk
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
 
 PACKAGE = Path(port.__file__).parent
@@ -59,6 +60,9 @@ def test_forbidden_matches_whole_names():
 def test_port_imports_no_jax():
     files = sorted(PACKAGE.rglob("*.py"))
     assert len(files) > 15
+    walked = {str(f.relative_to(PACKAGE)) for f in files}
+    assert {"color.py", "utils/native.py", "kernels/cuda/maskac.py", "metrics/calculate.py",
+            "metrics/prelude.py", "iter/eval.py", "iter/sweep.py", "iter/baseline.py"} <= walked
     bad = [(str(f.relative_to(PACKAGE)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -189,6 +193,10 @@ def test_wrappers_refuse_other_devices():
             tba._MALTA_LINES_FULL, tba._MALTA_LINES_LF, *tba._fused_diffmap_consts(0.8, 1.0),
         ),
         lambda: tbl.blur_batch(torch.empty(2, 1, 16, 16, device=m), tba.SIGMA_MASK),
+        lambda: tmk.mask_diff_ac_batch(
+            torch.empty(1, 16, 16, device=m), torch.empty(16, 16, device=m), 10.0
+        ),
+        lambda: tsf.scale_features(*(torch.empty(3, 16, 16, device=m) for _ in range(4))),
     ]
     for case in cases:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -224,6 +232,7 @@ def test_require_cuda_checks_dtype_shape_and_layout():
 def test_build_names_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     names = {p.name for p in _lib.sources()}
     assert {"scale_features.cu", "freqsep.cu", "malta.cu", "blur.cu"} <= names
+    assert {fn.source.rsplit("/", 1)[1] for fn in WRAPPERS.values()} <= names
     first = _lib.library_path()
     assert first == _lib.library_path() and first.parent == _lib.BUILD_DIR
     monkeypatch.setenv("PATH", str(tmp_path))
