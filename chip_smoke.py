@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and then runs seven phases,
+``nvcc`` (one process per source, in parallel) and then runs eight phases,
 each failing loudly:
 
 1. device: the card's name and power limit, and the kernels' build time;
@@ -39,8 +39,18 @@ each failing loudly:
    versions on those pairs' inputs and K7 at two ragged shapes;
    ``run_eval`` over two 512 px images held to an ``EvalSession``'s
    SSIMULACRA2 column; each ``calculate_*`` timed per call; K7 and K8
-   timed against their plain versions and their bounds; and the bound of
-   K9, which is not ported yet, at the shape its path will give it.
+   timed against their plain versions and their bounds;
+8. the mixed-size corpus: 20 pairs of crops of the 2048 px image (4 x 512,
+   2 x 800, 1 x 2048, 2048 x 1365 landscape and portrait, 333 x 517) at q50
+   and q90 scored by ``parallel.score_pairs_sharded(masked=True)`` in six
+   padded buckets with no ``device`` (K9 12 times and K4 twice per bucket,
+   nothing else), held to the exact-shape path on the card and, for the
+   333 x 517 bucket, to the host; where the card's time goes in one masked
+   call (profiler); K9 against its plain version bit for bit at every
+   scale of the 512, 2048 x 2048 and 2048 x 1408 buckets and at two ragged
+   shapes; K9 timed against its plain version, a grouped
+   ``conv2d`` and its bound; the corpus's wall time, pairs/s and peak
+   device memory.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
 per size; K7 and K8 launch by launch on one pair at each size (the grid,
@@ -89,6 +99,14 @@ PAIR_PICKS = [5, 50, 100]  # single pairs at 512 px, rescored on the host
 PAIR_VS_BATCH_RTOL = 1e-6
 # The kernels that only the single-pair path launches: K7 and K8.
 PAIR_ONLY = frozenset({"mask_diff_ac", "scale_features_pair"})
+# The kernel that only the masked (mixed-size) path launches: K9.
+MASKED_ONLY = frozenset({"candidate_moments"})
+# The mixed-size corpus: buckets of 128 px, and the masked scores held to
+# the exact path at tests/test_parallel.py's tolerance.
+GRANULARITY = 128
+MASKED_BATCH = 8  # pairs per masked scoring step; every phase-8 bucket fits in one
+MASKED_VS_EXACT = dict(rel=2e-3, abs=1e-4)
+MIXED_QUALITIES = [50, 90]
 
 # Peak rates of one H100 SXM at 700 W (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -113,8 +131,8 @@ PROLOGUE_OPS = 10
 EPILOGUE_OPS = 2 * 7 + 2 + 2 * 4 + 3 + 1 + 12 + 6 + 1
 # K7, per pixel beyond K6's blur: b0 - b1, the product with ac_mul, the square.
 MASK_EPILOGUE_OPS = 3
-# K9 (not ported yet), per channel and pixel: the products x2*x2 and x1*x2,
-# then three 15-tap blurs both ways.
+# K9, per channel and pixel: the products x2*x2 and x1*x2, then three 15-tap
+# blurs both ways.
 K9_OPS = 2 + 6 * (15 + 14)
 
 # ---------------------------------------------------------------- the codec
@@ -927,17 +945,6 @@ def phase_single_pair(
     return checks, checks_big, launches, launches_big, small, large
 
 
-def k9_bound(side: int) -> tuple:
-    """The bound of K9's function (``pallas/moments.py``, not ported yet) on
-    one pair's six SSIMULACRA2 scales from ``side`` px, the masked scorer's
-    moment stage: per channel and pixel two planes read and three written."""
-    px, n = 0, side
-    for _ in range(6):
-        px, n = px + n * n, (n + 1) // 2
-    moved, ops = 3 * px * (2 + 3) * 4, K9_OPS * 3 * px
-    return (*bound(moved, ops), moved, ops)
-
-
 def phase_run_eval(report_dir: Path, rows: dict) -> None:
     """Part 4 of phase 7: ``run_eval`` over two 512 px images through the
     block-DCT codec, on the card by default, against an ``EvalSession``'s
@@ -985,6 +992,285 @@ def phase_run_eval(report_dir: Path, rows: dict) -> None:
                                          f"session {column[p.quality]!r}")
     print(f"  run_eval's ssim2 against the session's SSIMULACRA2 column: "
           f"largest relative difference {worst:.3e}")
+
+
+# ------------------------------------------------- phase 8: mixed sizes
+
+
+def mixed_corpus(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
+    """20 pairs of crops of the 2048 px image: 4 x 512, 2 x 800, the whole
+    2048, 2048 x 1365 landscape and portrait, 333 x 517; candidates are the
+    same crops of its q50 and q90 decodes (the codec codes 8x8 blocks
+    independently, so an 8-aligned crop of a decode is the decode of the
+    crop).  Returns the pairs and a label for each."""
+    crops = [  # (row, col, h, w)
+        (0, 0, 512, 512), (0, 1536, 512, 512), (1536, 0, 512, 512), (1536, 1536, 512, 512),
+        (96, 608, 800, 800), (1024, 1024, 800, 800), (0, 0, BIG, BIG),
+        (344, 0, 1365, BIG), (0, 344, BIG, 1365), (1200, 400, 333, 517),
+    ]
+    pairs, labels = [], []
+    for y, x, h, w in crops:
+        for q in MIXED_QUALITIES:
+            dec = big_batch[BIG_QUALITIES.index(q)]
+            pairs.append((np.ascontiguousarray(big_u8[y : y + h, x : x + w]),
+                          np.ascontiguousarray(dec[y : y + h, x : x + w])))
+            labels.append(f"{h}x{w} q{q}")
+    return pairs, labels
+
+
+def stage_bucket(pairs: list, shapes: list, bucket: tuple) -> tuple:
+    """One bucket of the masked path on the card: the padded (N, H, W, 3)
+    references and candidates and the (N, 2) valid dims."""
+    from codec_eval_tpu_torch.kernels import masked as tm
+
+    idx = [i for i, s in enumerate(shapes) if s == bucket]
+    refs, dists = (
+        torch.from_numpy(np.stack([tm.pad_to_bucket(pairs[i][k], *bucket) for i in idx])).cuda()
+        for k in (0, 1)
+    )
+    return refs, dists, torch.tensor([pairs[i][0].shape[:2] for i in idx]).cuda()
+
+
+def k9_inputs(pairs: list, shapes: list, bucket: tuple) -> list:
+    """K9's inputs at every SSIMULACRA2 scale of one bucket of the masked
+    path: (label, (xyb1, xyb2)), the planes zero beyond each pair's valid
+    dims, as ``kernels/masked.py`` stages them."""
+    from codec_eval_tpu_torch.kernels import masked as tm
+
+    return [(f"{x1.shape[-2]}x{x1.shape[-1]}, N={x1.shape[0]}", (x1, x2))
+            for x1, x2, _, _ in tm._xyb_pyramid(*stage_bucket(pairs, shapes, bucket))]
+
+
+def k4_inputs(pairs: list, shapes: list, bucket: tuple) -> list:
+    """K4's inputs on one bucket of the masked path: (label, diffs) at full
+    and half resolution, the six Malta diff planes zeroed beyond each pair's
+    valid rectangle, as ``kernels/masked.py`` stages them."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels import masked as tm
+
+    params = ba.ButteraugliParams(hf_asymmetry=0.8, intensity_target=80.0)
+    out = []
+    for level in tm._resolutions(*stage_bucket(pairs, shapes, bucket)):
+        diffs = tm._malta_inputs(*level, params)[0]
+        out.append((f"{diffs.shape[-2]}x{diffs.shape[-1]}, N={diffs.shape[0]}", diffs))
+    return out
+
+
+def k9_check(err: float, x1: torch.Tensor, x2: torch.Tensor, shapes: str) -> Check:
+    """K9 on (x1, x2) for phase 6-style timing: its bound counts two planes
+    read and three written per channel-pixel; the library call is one
+    grouped ``conv2d`` with the 15x15 outer-product kernel on zero padding,
+    over the stacked products made beforehand."""
+    import torch.nn.functional as F
+    from codec_eval_tpu_torch.kernels.blur import gaussian_taps
+    from codec_eval_tpu_torch.kernels.cuda import moments
+
+    taps = torch.from_numpy(gaussian_taps(moments.SIGMA)).to(x1.device)
+    weight = torch.outer(taps, taps).expand(9, 1, len(taps), len(taps)).contiguous()
+    stacked = torch.cat([x2, x2 * x2, x1 * x2], dim=1)
+    conv = F.conv2d(stacked, weight, padding=len(taps) // 2, groups=9)
+    plain = torch.cat(moments.candidate_moments_plain(x1, x2), dim=1)
+    print(f"  grouped conv2d against K9's plain version ({shapes}): max |difference| "
+          f"{float((conv - plain).abs().max()):.3e}")
+    return Check(
+        err,
+        lambda: moments.candidate_moments(x1, x2),
+        lambda: moments.candidate_moments_plain(x1, x2),
+        5 * nbytes(x2), K9_OPS * x2.numel(), shapes,
+        library=lambda: F.conv2d(stacked, weight, padding=len(taps) // 2, groups=9),
+    )
+
+
+def profile_masked(pairs: list, shapes: list) -> None:
+    """Where one masked corpus call spends the card's time, from
+    ``torch.profiler``: the dense operator products (cuBLAS GEMMs), K4, K9
+    and everything else (eager elementwise ops, reductions, copies), the
+    largest of the rest by name; then each masked metric alone over the six
+    buckets (host clock, median of 3)."""
+    from torch.profiler import ProfilerActivity
+
+    from codec_eval_tpu_torch import parallel as par
+    from codec_eval_tpu_torch.kernels import masked as tm
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        par.score_pairs_sharded(pairs, masked=True, granularity=GRANULARITY)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = {"GEMM (dense masked blurs)": 0.0, "K4 malta_kernel": 0.0,
+              "K9 candidate_moments_kernel": 0.0, "other": 0.0}
+    count, rest = 0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("Activity Buffer"):
+            continue
+        count += e.count
+        key = e.key.lower()
+        group = ("GEMM (dense masked blurs)" if "gemm" in key else
+                 "K4 malta_kernel" if "malta_kernel" in key else
+                 "K9 candidate_moments_kernel" if "candidate_moments_kernel" in key else "other")
+        groups[group] += device_us(e) / 1e3
+        if group == "other":
+            rest.append(e)
+    busy = sum(groups.values())
+    print(f"  profiled masked corpus call: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+          f"idle {100 * (1 - busy / wall):.1f} %, {count} device operations")
+    for name, ms in groups.items():
+        print(f"    {ms:10.3f} ms  {name}")
+    print("  the largest of the rest:")
+    for e in sorted(rest, key=device_us, reverse=True)[:8]:
+        print(f"    {device_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+    staged = [stage_bucket(pairs, shapes, b) for b in sorted(set(shapes), key=shapes.index)]
+    for name in ("ssimulacra2", "dssim", "butteraugli", "psnr"):
+        fn = getattr(tm, f"{name}_masked_batch")
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            for refs, dists, hw in staged:
+                fn(refs, dists, hw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"  {name} alone, six buckets: median {statistics.median(times[1:]) * 1e3:.1f} ms "
+              f"of 3 after a warm-up")
+
+
+def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
+    """Phase 8: the mixed-size corpus through the masked corpus runner with
+    no ``device``; returns K9's row of the kernels line and what it adds to
+    K4's row (launches, error and times on the masked path's inputs)."""
+    from codec_eval_tpu_torch import parallel as par
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels import masked as tm
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, malta, moments
+
+    metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
+    pairs, labels = mixed_corpus(big_u8, big_batch)
+    shapes = tm.bucket_shapes([p[0].shape[:2] for p in pairs], GRANULARITY)
+    buckets = sorted(set(shapes), key=shapes.index)
+    print(f"  {len(pairs)} pairs in {len(buckets)} buckets of {GRANULARITY} px: "
+          + ", ".join(f"{h}x{w} ({shapes.count((h, w))})" for h, w in buckets))
+    if len(pairs) != 20 or len(buckets) != 6 or max(map(shapes.count, buckets)) > MASKED_BATCH:
+        raise AssertionError(f"the corpus must be 20 pairs in six buckets of at most "
+                             f"{MASKED_BATCH} pairs")
+
+    # One masked call, the launch counts read around it: per bucket (one
+    # scoring step each) K9 at six scales on both sides and K4 at full and
+    # half resolution, nothing else.
+    kw = dict(masked=True, granularity=GRANULARITY, batch=MASKED_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    masked = par.score_pairs_sharded(pairs, **kw)
+    first = time.perf_counter() - t0
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(candidate_moments=12 * len(buckets), malta_ac=2 * len(buckets))
+    launches = read_launches()
+    check_launches("of the masked corpus", launches, want)
+    print(f"  first masked call: {first:.2f} s")
+    if len(masked.per_pair) != len(pairs) or any(
+        set(p) != set(metrics) or not all(np.isfinite(p[k]) for k in metrics)
+        for p in masked.per_pair
+    ):
+        raise AssertionError("the masked corpus did not give four finite scores per pair")
+
+    # Every masked score against the exact-shape path on the card.
+    t0 = time.perf_counter()
+    exact = par.score_pairs_sharded(pairs)
+    exact_s = time.perf_counter() - t0
+    worst = dict.fromkeys(metrics, 0.0)
+    for label, g, e in zip(labels, masked.per_pair, exact.per_pair):
+        print(f"    {label}: masked " + " ".join(f"{k}={g[k]:.6f}" for k in metrics)
+              + " | exact " + " ".join(f"{e[k]:.6f}" for k in metrics))
+        for k in metrics:
+            worst[k] = max(worst[k], rel_diff(g[k], e[k]))
+            if abs(g[k] - e[k]) > MASKED_VS_EXACT["abs"] + MASKED_VS_EXACT["rel"] * abs(e[k]):
+                raise AssertionError(f"{label} {k}: masked {g[k]!r} vs exact {e[k]!r}")
+    print(f"  exact path, one pair at a time: {exact_s:.2f} s; largest relative difference "
+          f"masked vs exact: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # The 333x517 bucket on the host.
+    small = [i for i, s in enumerate(shapes) if s == (384, 640)]
+    t0 = time.perf_counter()
+    host = par.score_pairs_sharded(
+        [pairs[i] for i in small], mesh=par.make_mesh(devices=[torch.device("cpu")]), **kw
+    )
+    print(f"  host rescoring of the 384x640 bucket: {time.perf_counter() - t0:.2f} s")
+    for i, h in zip(small, host.per_pair):
+        for k in metrics:
+            g = masked.per_pair[i][k]
+            print(f"    {labels[i]} {k}: card {g!r} host {h[k]!r} rel {rel_diff(g, h[k]):.3e}")
+            if rel_diff(g, h[k]) > SCORE_RTOL[k]:
+                raise AssertionError(f"{labels[i]} {k}: card {g!r} vs host {h[k]!r}")
+
+    # The corpus as a whole: wall time of the masked call, staging included.
+    par.score_pairs_sharded(pairs, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        par.score_pairs_sharded(pairs, **kw)
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    print(f"  masked corpus of {len(pairs)} pairs: median {med * 1e3:.1f} ms of 3 "
+          f"({[round(t * 1e3, 1) for t in times]}), {len(pairs) / med:.2f} pairs/s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_masked(pairs, shapes)
+
+    # K9 against its plain version, bit for bit: every scale of the 512,
+    # 2048 and 2048x1408 buckets, both sides, and two ragged shapes.  The
+    # top scales of the first two are timed below.
+    err, tops = 0.0, {}
+    for bucket in ((512, 512), (BIG, BIG), (BIG, 1408)):
+        scales = k9_inputs(pairs, shapes, bucket)
+        tops[bucket] = scales[0]
+        for label, (x1, x2) in scales:
+            for side, a, b in (("candidate", x1, x2), ("reference", x1, x1)):
+                err = max(err, compare(
+                    f"K9 {side} {label}", torch.stack(moments.candidate_moments(a, b)),
+                    torch.stack(moments.candidate_moments_plain(a, b)), **EXACT))
+        del scales
+    rng = np.random.default_rng(SEED)
+    for shape in ((2, 3, 37, 53), (1, 3, 67, 653)):
+        a, b = (torch.from_numpy(rng.random(shape, np.float32)).cuda() for _ in range(2))
+        err = max(err, compare(
+            f"K9 {'x'.join(map(str, shape))}", torch.stack(moments.candidate_moments(a, b)),
+            torch.stack(moments.candidate_moments_plain(a, b)), **EXACT))
+
+    # K4 against its plain version on the masked diff planes of the 512,
+    # 2048x1408 and 384x640 buckets at full and half resolution; timed on
+    # the 2048x1408 bucket's full resolution.
+    lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
+    k4_err, k4_timed = 0.0, None
+    for bucket in ((512, 512), (BIG, 1408), (384, 640)):
+        for label, diffs in k4_inputs(pairs, shapes, bucket):
+            got = malta.malta_ac_batch(diffs, *lines)
+            k4_err = max(k4_err, compare(f"K4 malta_ac masked {label}", got,
+                                         malta.malta_ac_plain(diffs, *lines), **KERNEL_TOL))
+            if bucket == (BIG, 1408) and k4_timed is None:
+                k4_timed = Check(
+                    k4_err, functools.partial(malta.malta_ac_batch, diffs, *lines),
+                    functools.partial(malta.malta_ac_plain, diffs, *lines),
+                    nbytes(diffs, got), malta_ops(*lines) * diffs.shape[0] * diffs[0, 0].numel(),
+                    f"masked 2048x1408 bucket, {label}")
+            del got
+
+    fn = WRAPPERS["candidate_moments"]
+    top_small, top_big = tops[(512, 512)], tops[(BIG, BIG)]
+    k9_row = {
+        "name": "candidate_moments", "route": "cuda", "source": fn.source,
+        "replaces": fn.replaces, "launches": launches["candidate_moments"], "max_abs_err": err,
+        **time_check("candidate_moments", k9_check(err, *top_small[1], top_small[0])),
+        "shapes": f"512x512 bucket top scale, {top_small[0]}",
+        "launches_per_bucket": launches["candidate_moments"] // len(buckets),
+        "at_2048": time_check("candidate_moments on the 2048x2048 bucket",
+                              k9_check(err, *top_big[1], top_big[0])),
+        "corpus_ms": med * 1e3, "corpus_pairs_per_s": len(pairs) / med,
+    }
+    k4_extra = {
+        "launches_masked": launches["malta_ac"], "max_abs_err_masked": k4_err,
+        "at_masked": {"shapes": k4_timed.shapes,
+                      **time_check("malta_ac on the masked path", k4_timed)},
+    }
+    return k9_row, k4_extra
 
 
 def time_check(label: str, c: Check) -> dict:
@@ -1096,7 +1382,7 @@ def main() -> int:
     _lib.load()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
 
-    def done(phase: int, t0: float) -> None:
+    def done(phase, t0: float) -> None:
         print(f"  phase {phase}: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1110,7 +1396,8 @@ def main() -> int:
     print(f"[3] EvalSession sweep on {device}: {len(QUALITIES)} qualities at {SIZE}px")
     with tempfile.TemporaryDirectory() as tmp:
         launches, rows_512 = phase_slice(ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
-                                         idle={"malta_diffmap", "blur", *PAIR_ONLY})
+                                         idle={"malta_diffmap", "blur", *PAIR_ONLY,
+                                               *MASKED_ONLY})
     done(3, t0)
 
     t0 = time.perf_counter()
@@ -1124,7 +1411,7 @@ def main() -> int:
           f"at {BIG}px")
     with tempfile.TemporaryDirectory() as tmp:
         launches_big, big_rows = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp), None,
-                                             idle=PAIR_ONLY)
+                                             idle=PAIR_ONLY | MASKED_ONLY)
     big_batch = candidates(big_u8, BIG_QUALITIES)
     print(f"  kernels vs plain on the {BIG} px sweep's inputs")
     checks_big = phase_kernels(big_u8, big_batch, device)
@@ -1136,8 +1423,8 @@ def main() -> int:
     print(f"[6] device time, mean of 10 (plain, kernel, kernel, plain) | {card}")
     rows = []
     for name, fn in WRAPPERS.items():
-        if name in PAIR_ONLY:
-            continue  # K7 and K8 run on phase 7's path, and are timed there
+        if name in PAIR_ONLY | MASKED_ONLY:
+            continue  # K7 and K8 run on phase 7's path, K9 on phase 8's; timed there
         # Each kernel's row is timed on the path it was ported for (K1-K4 at
         # 512 px, K5 and K6 at 2048 px); its error is the worst of both paths.
         small, big = checks.get(name), checks_big[name]
@@ -1182,10 +1469,16 @@ def main() -> int:
             "max_abs_err_512": small.err, "max_abs_err_2048": big.err,
             "at_2048": time_check(f"{name} on the {BIG} px single pair", big),
         })
-    k9_ms, k9_by, k9_bytes, k9_ops = k9_bound(SIZE)
-    print(f"  K9 candidate_moments, not ported: bound at {SIZE} px, one pair, six scales "
-          f"{k9_ms:.4f} ms by {k9_by} ({k9_bytes / 1e6:.1f} MB, {k9_ops / 1e9:.3f} Gop)")
     done(7, t0)
+
+    t0 = time.perf_counter()
+    print(f"[8] the mixed-size corpus, masked, no device given | {card}")
+    k9_row, k4_extra = phase_mixed(big_u8, big_batch)
+    k4_row = next(r for r in rows if r["name"] == "malta_ac")
+    k4_row["max_abs_err"] = max(k4_row["max_abs_err"], k4_extra["max_abs_err_masked"])
+    k4_row.update(k4_extra)
+    rows.append(k9_row)
+    done(8, t0)
 
     if "--profile" in sys.argv[1:]:
         t0 = time.perf_counter()
@@ -1199,7 +1492,7 @@ def main() -> int:
         print(f"[profile] one call of each calculate_* (q50) | {card}")
         profile_pairs(ref_u8, pick)
         profile_pairs(big_u8, big_batch[0])
-        done(8, t0)
+        done("profile", t0)
 
     torch.cuda.synchronize()
     print(f"  total: {time.perf_counter() - start:.2f} s")

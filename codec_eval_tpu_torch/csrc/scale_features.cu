@@ -17,78 +17,43 @@
 // device memory once per tile (the halo costs 2.7x on the two staged
 // planes).  The vertical pass blurs all three moment products into shared
 // memory, the horizontal pass runs per output pixel in registers, and the
-// maps never leave the SM.  Pixels outside the image are masked before the
-// sums.  Each block writes its own six partial sums to (N, 3, nblocks, 6):
-// no atomics, so results repeat run to run; the wrapper adds the partials.
-// The TPU kernel kept the reference slab resident across the candidate
-// axis of a sequential grid; here blocks run in parallel and each loads its
-// own reference tile (the reference planes stay hot in the 50 MB L2).
-#include "common.cuh"
+// maps never leave the SM; the staging and both passes are the moment tile
+// that K9 (moments.cu) shares (moments.cuh).  Pixels outside the image are
+// masked before the sums.  Each block writes its own six partial sums to
+// (N, 3, nblocks, 6): no atomics, so results repeat run to run; the wrapper
+// adds the partials.  The TPU kernel kept the reference slab resident across
+// the candidate axis of a sequential grid; here blocks run in parallel and
+// each loads its own reference tile (the reference planes stay hot in the
+// 50 MB L2).
+#include "moments.cuh"
+
+using namespace ce::moments;
 
 namespace {
 
-constexpr int R = 7;
-constexpr int K = 2 * R + 1;
-constexpr int TW = 32;
-constexpr int TH = 16;
-constexpr int SW = TW + 2 * R;
-constexpr int SH = TH + 2 * R;
 constexpr float kC2 = 0.0009f;
 
 __global__ void __launch_bounds__(ce::kThreads)
 scale_features_kernel(const float* __restrict__ x1, const float* __restrict__ mu1,
                       const float* __restrict__ s11, const float* __restrict__ x2,
                       float* __restrict__ partial, int h, int w, ce::Floats<K> taps) {
-  __shared__ float a[SH][SW];      // reference x1 tile + halo
-  __shared__ float b[SH][SW];      // candidate x2 tile + halo
-  __shared__ float v[3][TH][SW];   // vertical blurs of x2, x2*x2, x1*x2
+  __shared__ Tile t;
   __shared__ float scratch[ce::kThreads / 32];
 
   const int tid = threadIdx.x;
   const int c = blockIdx.z % 3;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const size_t plane = (size_t)h * w;
-  const float* p1 = x1 + c * plane;
-  const float* p2 = x2 + (size_t)blockIdx.z * plane;
-
-  for (int i = tid; i < SH * SW; i += ce::kThreads) {
-    const int sy = i / SW, sx = i % SW;
-    const int gy = y0 + sy - R, gx = x0 + sx - R;
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const size_t gi = (size_t)gy * w + gx;
-    a[sy][sx] = in ? p1[gi] : 0.f;
-    b[sy][sx] = in ? p2[gi] : 0.f;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < TH * SW; i += ce::kThreads) {
-    const int ty = i / SW, sx = i % SW;
-    float m = 0.f, q22 = 0.f, q12 = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float xa = a[ty + k][sx], xb = b[ty + k][sx];
-      m = m + taps.v[k] * xb;
-      q22 = q22 + taps.v[k] * (xb * xb);
-      q12 = q12 + taps.v[k] * (xa * xb);
-    }
-    v[0][ty][sx] = m;
-    v[1][ty][sx] = q22;
-    v[2][ty][sx] = q12;
-  }
-  __syncthreads();
+  // One reference for every candidate: its channel c.
+  stage_vertical(t, x1 + c * plane, x2 + (size_t)blockIdx.z * plane, x0, y0, h, w, taps);
 
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int i = tid; i < TH * TW; i += ce::kThreads) {
     const int ty = i / TW, tx = i % TW;
     const int gy = y0 + ty, gx = x0 + tx;
     if (gy >= h || gx >= w) continue;  // the ragged edge adds nothing
-    float mu2 = 0.f, q22 = 0.f, q12 = 0.f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      mu2 = mu2 + taps.v[k] * v[0][ty][tx + k];
-      q22 = q22 + taps.v[k] * v[1][ty][tx + k];
-      q12 = q12 + taps.v[k] * v[2][ty][tx + k];
-    }
+    float mu2, q22, q12;
+    horizontal(t, ty, tx, taps, mu2, q22, q12);
     const size_t gi = c * plane + (size_t)gy * w + gx;
     const float m1 = mu1[gi], q11 = s11[gi];
     const float mu11 = m1 * m1, mu22 = mu2 * mu2, mu12 = m1 * mu2;
@@ -97,8 +62,8 @@ scale_features_kernel(const float* __restrict__ x1, const float* __restrict__ mu
     const float num_s = 2.f * (q12 - mu12) + kC2;
     const float den_s = (q11 - mu11) + (q22 - mu22) + kC2;
     const float d = fmaxf(1.f - (num_m * num_s) / den_s, 0.f);
-    const float det1 = fabsf(a[ty + R][tx + R] - m1);
-    const float det2 = fabsf(b[ty + R][tx + R] - mu2);
+    const float det1 = fabsf(t.a[ty + R][tx + R] - m1);
+    const float det2 = fabsf(t.b[ty + R][tx + R] - mu2);
     const float ed = (1.f + det2) / (1.f + det1) - 1.f;
     const float art = fmaxf(ed, 0.f), lost = fmaxf(-ed, 0.f);
     const float d2 = d * d, a2 = art * art, l2 = lost * lost;

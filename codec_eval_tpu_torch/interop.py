@@ -17,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .engine.scoring import resolve_device
 from .kernels.butteraugli import ButteraugliParams, ButteraugliReference, PsychoImage
 from .kernels.dssim import DssimReference
 from .kernels.ssimulacra2 import Ssimulacra2Reference
@@ -37,9 +38,10 @@ def _masks(m, device):
     return None if m is None else tuple(_t(a, device) for a in m)
 
 
-def references_from_numpy(pre: Dict[str, object], device="cpu") -> Dict[str, object]:
-    """JAX precompute (numpy leaves) -> the port's precompute dict."""
-    device = torch.device(device)
+def references_from_numpy(pre: Dict[str, object], device="cuda") -> Dict[str, object]:
+    """JAX precompute (numpy leaves) -> the port's precompute dict, on the
+    card unless the caller asks for the CPU (``resolve_device``)."""
+    device = resolve_device(device)
     ref_u8 = _t(pre["ref_u8"], device)
     out: Dict[str, object] = {"ref_u8": ref_u8}
     if "s2" in pre:

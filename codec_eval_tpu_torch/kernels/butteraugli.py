@@ -23,6 +23,10 @@ batch path at B = 1, except for the candidate's masking term: at every size
 it runs as K7 (``cuda/maskac.py``), the sigma-2.7 blur and the squared
 difference fused, so the batch's K6 / dense-operator route is left as it is.
 
+The mixed-size scorer (``kernels/masked.py``) takes the mask-aware forms at
+the end of this file: every blur a dense operator product renormalized over
+each pair's valid rectangle, the Malta sweeps on K4.
+
 On CUDA tensors both the reference and the candidate side run through the
 kernels; on CPU tensors every kernel wrapper takes its plain version.
 """
@@ -40,7 +44,18 @@ import torch
 
 from .color import rdiv, srgb_u8_to_linear
 from .cuda.blur import blur_batch
-from .cuda.freqsep import bands_batch, opsin_xyb_batch
+from .cuda.freqsep import (
+    SIGMA_MF,
+    SIGMA_SURROUND,
+    SIGMA_UHF,
+    _amplify_range,
+    _fma,
+    _maximum_clamp,
+    _remove_range,
+    bands_batch,
+    opsin_from_blurred,
+    opsin_xyb_batch,
+)
 from .cuda.malta import l2_asymmetric, malta_ac_batch, malta_diffmap_batch, malta_prologue
 from .cuda.maskac import mask_diff_ac_batch
 
@@ -314,12 +329,14 @@ def _diff_precompute(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(_DIFF_PRE_MUL * torch.abs(v) + bias) - math.sqrt(bias)
 
 
-def _fuzzy_erosion(v: torch.Tensor) -> torch.Tensor:
+def _fuzzy_erosion(v: torch.Tensor, mask2d: Optional[torch.Tensor] = None) -> torch.Tensor:
     """0.45*m0 + 0.3*m1 + 0.25*m2 of the three smallest of {v, 2v, 2v, the
-    8 neighbours at step 3}; outside the image counts as very large."""
+    8 neighbours at step 3}; outside the image counts as very large, and so
+    does a neighbour where ``mask2d`` (the valid rectangle) is 0."""
     h, w = v.shape[-2], v.shape[-1]
     big = float(np.finfo(np.float32).max / 4)
-    padded = torch.nn.functional.pad(v, (3, 3, 3, 3), value=big)
+    src = v if mask2d is None else torch.where(mask2d > 0, v, torch.full_like(v, big))
+    padded = torch.nn.functional.pad(src, (3, 3, 3, 3), value=big)
     cands = [v, 2.0 * v, 2.0 * v]
     for dy in (-3, 0, 3):
         for dx in (-3, 0, 3):
@@ -393,16 +410,17 @@ def _diffmap_psycho(
 ) -> torch.Tensor:
     """Per-pixel distance of a candidate batch (leading axis B) with the
     Malta accumulators (B, 2, H, W), the reference masks and the candidate
-    mask term (B, H, W) already computed."""
+    mask term (B, H, W) already computed.  The reference ``pi0`` is one
+    image, or a batch of B on the masked path (one reference per pair)."""
     a = np.float32(hf_asymmetry)
     ac0, ac1 = malta_ac[:, 0], malta_ac[:, 1]
     w0 = np.float32(_WMUL[0])
     w1 = np.float32(_WMUL[1])
     ac0 = ac0 + _l2_diff_asymmetric(
-        pi0.hf[0], pi1.hf[:, 0], float(w0 * a), float(w0 / a)
+        pi0.hf[..., 0, :, :], pi1.hf[:, 0], float(w0 * a), float(w0 / a)
     )
     ac1 = ac1 + _l2_diff_asymmetric(
-        pi0.hf[1], pi1.hf[:, 1], float(w1 * a), float(w1 / a)
+        pi0.hf[..., 1, :, :], pi1.hf[:, 1], float(w1 * a), float(w1 / a)
     )
     d_mf = pi0.mf - pi1.mf
     wmf = torch.tensor(_WMUL[3:6], dtype=torch.float32, device=d_mf.device)[:, None, None]
@@ -582,8 +600,8 @@ def butteraugli_batch(ref: ButteraugliReference, lin_full: torch.Tensor) -> torc
 
 
 def _planar_linear(u8: torch.Tensor) -> torch.Tensor:
-    """(H, W, 3) u8 sRGB -> (3, H, W) linear RGB."""
-    return torch.movedim(srgb_u8_to_linear(u8), -1, 0).contiguous()
+    """(..., H, W, 3) u8 sRGB -> (..., 3, H, W) linear RGB."""
+    return torch.movedim(srgb_u8_to_linear(u8), -1, -3).contiguous()
 
 
 def butteraugli_distmap_against(
@@ -649,3 +667,98 @@ def butteraugli_pnorm(
     """p-norm of the distance map (the jxl-style aggregate)."""
     dmap = butteraugli_distmap(ref_u8, dist_u8, intensity_target, hf_asymmetry)
     return torch.pow(torch.mean(torch.pow(torch.clamp(dmap, min=0.0), p)), 1.0 / p)
+
+
+# ------------------------------------------------- the masked (padded) path
+#
+# The mask-aware forms of the stages above, for ``kernels/masked.py``: a
+# batch of N pairs zero-padded to one bucket shape, each with its own valid
+# (top-left) rectangle, given as {0, 1} row and column vectors mrow (N, h)
+# and mcol (N, w) and their outer product m2 (N, h, w).  Every blur is the
+# dense operator product renormalized over the valid rectangle only, as the
+# JAX package computes it; K2, K3 and K6 take one renormalization plane for
+# the whole batch, so they do not serve here.  The Malta sweeps run on K4:
+# with the diff planes zeroed beyond the valid rectangle, its zero-padded
+# sweep is exactly the masked one.
+
+
+def _blur_masked(
+    planes: torch.Tensor, sigma: float, mrow: torch.Tensor, mcol: torch.Tensor
+) -> torch.Tensor:
+    """(N, C, h, w) planes, zero beyond each pair's valid rectangle ->
+    their blur renormalized over that rectangle only, zero beyond it.  The
+    renormalization separates into an outer product of blurred 1-D masks."""
+    h, w = planes.shape[-2], planes.shape[-1]
+    bh = _blur_operator(h, sigma, planes.device)
+    bw = _blur_operator(w, sigma, planes.device)
+    out = torch.matmul(torch.matmul(bh, planes), bw.T)
+    vrow = torch.matmul(mrow, bh.T)
+    vcol = torch.matmul(mcol, bw.T)
+    denom = vrow[:, :, None] * vcol[:, None, :]
+    out = out / torch.clamp(denom, min=1e-9)[:, None]
+    return out * (mrow[:, :, None] * mcol[:, None, :])[:, None]
+
+
+def _opsin_dynamics(linear_scaled: torch.Tensor, m2, mrow, mcol) -> torch.Tensor:
+    """(N, 3, h, w) intensity-scaled linear RGB -> opponent XYB, the
+    surround blur masked."""
+    blurred = _blur_masked(linear_scaled * m2[:, None], SIGMA_SURROUND, mrow, mcol)
+    return opsin_from_blurred(linear_scaled, blurred, _OPSIN_CONSTS)
+
+
+def _separate_frequencies(xyb: torch.Tensor, m2, mrow, mcol) -> PsychoImage:
+    xyb = xyb * m2[:, None]
+    return _bands_from_lf(xyb, _blur_masked(xyb, SIGMA_LF, mrow, mcol), m2, mrow, mcol)
+
+
+def _bands_from_lf(xyb: torch.Tensor, lf: torch.Tensor, m2, mrow, mcol) -> PsychoImage:
+    """The band chain of K3 (``cuda/freqsep.py:bands_plain``) with masked
+    blurs, given the masked XYB and its LF blur; every band masked."""
+
+    def blur(p, sigma):
+        return _blur_masked(p * m2[:, None], sigma, mrow, mcol)
+
+    mf = xyb - lf
+    mf_b = blur(mf[:, 2:3], SIGMA_MF)[:, 0]
+    mf_xy = blur(mf[:, :2], SIGMA_MF)
+    hf = mf[:, :2] - mf_xy
+    mf_x = _remove_range(mf_xy[:, 0], _MF_X_REMOVE)
+    mf_y = _amplify_range(mf_xy[:, 1], _MF_Y_AMPLIFY)
+    lf_vals = torch.stack(
+        [lf[:, 0] * _XLF_X, lf[:, 1] * _XLF_Y, (lf[:, 2] + _XLF_Y_TO_B * lf[:, 1]) * _XLF_B],
+        dim=1,
+    )
+    # Red-green suppression by intensity change, on the full hf.
+    suppress = _SUPPRESS_S + rdiv(
+        (1.0 - _SUPPRESS_S) * _SUPPRESS_YW, _fma(hf[:, 1], hf[:, 1], _SUPPRESS_YW)
+    )
+    hf = torch.stack([hf[:, 0] * suppress, hf[:, 1]], dim=1)
+    hf_blur = blur(hf, SIGMA_UHF)
+    uhf_x = _remove_range(hf[:, 0] - hf_blur[:, 0], _UHF_X_REMOVE)
+    out_hf_x = _remove_range(hf_blur[:, 0], _HF_X_REMOVE)
+    hfc = _maximum_clamp(hf_blur[:, 1], _MAXCLAMP_HF, _MAXCLAMP_MUL)
+    uhf_y = _maximum_clamp(hf[:, 1] - hfc, _MAXCLAMP_UHF, _MAXCLAMP_MUL) * _UHF_Y_MUL
+    out_hf_y = _amplify_range(hfc * _HF_Y_MUL, _HF_Y_AMPLIFY)
+    m = m2[:, None]
+    return PsychoImage(
+        uhf=torch.stack([uhf_x, uhf_y], dim=1) * m,
+        hf=torch.stack([out_hf_x, out_hf_y], dim=1) * m,
+        mf=torch.stack([mf_x, mf_y, mf_b], dim=1) * m,
+        lf=lf_vals * m,
+    )
+
+
+def _mask_reference_side(pi0: PsychoImage, m2, mrow, mcol):
+    """The reference's masking pieces (b0, MaskY, MaskDcY), masked: the
+    fuzzy erosion leaves out neighbours beyond the valid rectangle."""
+    d0 = _diff_precompute(_combine_channels_for_masking(pi0))
+    b0 = _blur_masked((d0 * m2)[:, None], SIGMA_MASK, mrow, mcol)[:, 0]
+    mask = _fuzzy_erosion(b0, m2)
+    return b0, _mask_y(mask), _mask_dc_y(mask)
+
+
+def _mask_candidate_side(b0: torch.Tensor, pi1: PsychoImage, m2, mrow, mcol) -> torch.Tensor:
+    """The candidate's masking term ``ac_mul * (b0 - b1)^2``, masked."""
+    d1 = _diff_precompute(_combine_channels_for_masking(pi1))
+    b1 = _blur_masked((d1 * m2)[:, None], SIGMA_MASK, mrow, mcol)[:, 0]
+    return _MASK_DIFF_AC_MUL * (b0 - b1) * (b0 - b1)

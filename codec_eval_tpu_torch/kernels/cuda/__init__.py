@@ -11,6 +11,7 @@ from .freqsep import bands_batch, opsin_xyb_batch
 from .malta import malta_ac_batch, malta_diffmap_batch
 from . import scale_features  # the module: K8's wrapper shares its name
 from .maskac import mask_diff_ac_batch
+from .moments import candidate_moments
 from .scale_features import scale_features_batch
 
 #: Every kernel wrapper of the port, by kernel name.
@@ -23,4 +24,5 @@ WRAPPERS = {
     "blur": blur_batch,
     "mask_diff_ac": mask_diff_ac_batch,
     "scale_features_pair": scale_features.scale_features,
+    "candidate_moments": candidate_moments,
 }

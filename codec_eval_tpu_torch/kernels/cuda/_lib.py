@@ -58,6 +58,8 @@ SIGNATURES = {
     "ce_blur": (P, P, P, I, I, I, P, I, P),
     # d1, b0, recip, out, b, h, w, taps, ntaps, ac_mul, stream
     "ce_mask_diff_ac": (P, P, P, P, I, I, I, P, I, F, P),
+    # x1, x2, out, planes, h, w, taps, stream
+    "ce_candidate_moments": (P, P, P, I, I, I, P, P),
 }
 
 

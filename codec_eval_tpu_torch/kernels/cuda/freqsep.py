@@ -116,11 +116,17 @@ def _fast_log2(x: torch.Tensor) -> torch.Tensor:
 
 def opsin_xyb_plain(linear_scaled: torch.Tensor, consts) -> torch.Tensor:
     """(B, 3, H, W) intensity-scaled linear RGB -> (B, 3, H, W) opponent XYB."""
-    (m00, m01, m02, m10, m11, m12, m20, m21, m22,
-     b0, b1, b2, gmul, goff, gsub) = consts
     h, w = linear_scaled.shape[-2], linear_scaled.shape[-1]
     recip = recip_norm(h, w, SIGMA_SURROUND, linear_scaled.device)
     blurred = _fir_fma(linear_scaled, _taps(SIGMA_SURROUND)) * recip
+    return opsin_from_blurred(linear_scaled, blurred, consts)
+
+
+def opsin_from_blurred(linear_scaled: torch.Tensor, blurred: torch.Tensor, consts) -> torch.Tensor:
+    """Opsin dynamics after the sigma-1.2 surround blur ``blurred`` of
+    ``linear_scaled``, both (B, 3, H, W): sensitivity, absorbance, XYB."""
+    (m00, m01, m02, m10, m11, m12, m20, m21, m22,
+     b0, b1, b2, gmul, goff, gsub) = consts
     mix = ((m00, m01, m02, b0), (m10, m11, m12, b1), (m20, m21, m22, b2))
 
     def absorb(p, i):

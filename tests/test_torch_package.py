@@ -7,7 +7,8 @@
 - (c) on CPU tensors no kernel wrapper launches its kernel;
 - (d) the card is the default device; asking for CUDA without a card is an
   error, never a CPU fallback, and a kernel wrapper given a tensor on any
-  other device than the CPU raises unless it is a CUDA tensor.
+  other device than the CPU raises unless it is a CUDA tensor;
+- (e) every Pallas kernel of the JAX package (K1-K9) has its wrapper.
 """
 
 import ast
@@ -29,6 +30,7 @@ from codec_eval_tpu_torch.kernels.cuda import blur as tbl
 from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
 from codec_eval_tpu_torch.kernels.cuda import malta as tml
 from codec_eval_tpu_torch.kernels.cuda import maskac as tmk
+from codec_eval_tpu_torch.kernels.cuda import moments as tmo
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
 
 PACKAGE = Path(port.__file__).parent
@@ -65,6 +67,25 @@ def test_port_imports_no_jax():
             "metrics/prelude.py", "iter/eval.py", "iter/sweep.py", "iter/baseline.py"} <= walked
     bad = [(str(f.relative_to(PACKAGE)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
+
+
+@pytest.mark.parametrize("module", ["kernels/masked.py", "kernels/cuda/moments.py",
+                                    "parallel/mesh.py", "parallel/corpus_runner.py",
+                                    "parallel/__init__.py"])
+def test_mixed_size_modules_import_no_jax(module):
+    path = PACKAGE / module
+    assert path.is_file()
+    assert [m for m in _imports(path) if _forbidden(m)] == []
+
+
+def test_parallel_exports_mesh_and_corpus_runner_only():
+    import codec_eval_tpu_torch.parallel as par
+
+    assert set(par.__all__) == {
+        "CorpusScores", "Mesh", "StagedPairs", "make_mesh", "score_pairs_sharded", "score_staged",
+        "shard_batch", "sharded_masked_score_fn", "sharded_score_fn", "stage_pairs_sharded",
+    }
+    assert not hasattr(par, "multihost") and not hasattr(par, "ladder_runner")
 
 
 def test_chip_smoke_imports_no_jax():
@@ -116,6 +137,18 @@ def test_wrapper_names_its_source_and_the_pallas_kernel(name):
     text = (REPO / path).read_text().splitlines()[int(line) - 1]
     assert text.startswith("def ") and text.split("(")[0].endswith("_pallas_batch" if name ==
         "scale_features" else "_pallas")
+
+
+def test_nine_wrappers_one_per_pallas_kernel():
+    """K1-K9: nine wrappers, each replacing a different ``pl.pallas_call``
+    function of the JAX package, at a path and line that exist."""
+    assert len(WRAPPERS) == 9
+    replaced = [fn.replaces for fn in WRAPPERS.values()]
+    assert len(set(replaced)) == 9
+    for where in replaced:
+        path, line = where.split(":")
+        assert path.startswith("codec_eval_tpu/kernels/pallas/")
+        assert int(line) <= len((REPO / path).read_text().splitlines())
 
 
 def _gradient(h, w):
@@ -197,6 +230,7 @@ def test_wrappers_refuse_other_devices():
             torch.empty(1, 16, 16, device=m), torch.empty(16, 16, device=m), 10.0
         ),
         lambda: tsf.scale_features(*(torch.empty(3, 16, 16, device=m) for _ in range(4))),
+        lambda: tmo.candidate_moments(*(torch.empty(2, 3, 16, 16, device=m) for _ in range(2))),
     ]
     for case in cases:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -239,3 +273,15 @@ def test_build_names_the_sources_and_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _lib._nvcc()
+
+
+def test_references_from_numpy_defaults_to_the_card(monkeypatch):
+    """With no ``device`` the JAX precompute goes to the card: without one it
+    raises instead of staying on the host; ``device="cpu"`` still works."""
+    from codec_eval_tpu_torch import interop
+
+    pre = {"ref_u8": np.zeros((8, 8, 3), np.uint8)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.references_from_numpy(pre)
+    assert interop.references_from_numpy(pre, device="cpu")["ref_u8"].device.type == "cpu"

@@ -95,7 +95,8 @@ def test_jax_reference_through_interop(pair):
     want = {k: np.asarray(v) for k, v in chunk(pre, jnp.asarray(planar)).items()}
     config = port.MetricConfig.all()
     got = fetch_scores(
-        score_chunk(interop.references_from_numpy(pre_np), torch.from_numpy(planar), config)
+        score_chunk(interop.references_from_numpy(pre_np, device="cpu"),
+                    torch.from_numpy(planar), config)
     )
     assert sorted(got) == sorted(want)
     _assert_scores(got, want, len(cands))
