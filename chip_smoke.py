@@ -8,11 +8,13 @@ Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, in parallel) and then runs eight phases,
 each failing loudly:
 
-1. device: the card's name and power limit, and the kernels' build time;
+1. device: the card's name and power limit, the kernels' build time, and
+   the compiler's registers, shared memory and spills of the Malta kernels
+   (K4, K5);
 2. K1-K4 against their plain PyTorch versions on the card, on the inputs the
    512 px all-metric sweep gives them (25 candidates and the reference at
    512 and 256 px, K1 at all six SSIMULACRA2 scales), and all six kernels
-   at two ragged shapes (K6 at sigma 2.7 and 7.16);
+   at three ragged shapes (K6 at sigma 2.7 and 7.16);
 3. the 512 px slice: an ``EvalSession(MetricConfig.all(), device="cuda")``
    sweep of a 512x512 image through a host block-DCT codec at 25 quality
    levels, with the reports written, every kernel's launch counter read
@@ -27,9 +29,10 @@ each failing loudly:
    kernel against its plain version on that sweep's inputs (K1 at 2048 down
    to 64 px; K2, K3 and K6 at 2048 and 1024; K4 at 1024; K5 at 2048);
 6. each kernel's time against its plain version's and its bound, on both
-   paths for K1-K4; for K6 the dense operator product it replaces; and the
-   whole diffmap at 2048 and 1024 px both ways, through K5 and through
-   the prologue, K4 and the eager epilogue;
+   paths for K1-K4, with the kernel-alone device time of K4 and K5; for K6
+   the dense operator product it replaces; and the whole diffmap at 2048
+   and 1024 px both ways, through K5 and through the prologue, K4 and the
+   eager epilogue;
 7. the single-pair API and the codec-iter loop: the four ``calculate_*``
    and Butteraugli at 250 nits with no ``device`` on three 512 px
    candidates (K7 and K8 launch, K2-K4 once per pass at B = 1, K5 and K6
@@ -67,6 +70,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -134,6 +138,9 @@ MASK_EPILOGUE_OPS = 3
 # K9, per channel and pixel: the products x2*x2 and x1*x2, then three 15-tap
 # blurs both ways.
 K9_OPS = 2 + 6 * (15 + 14)
+# The CUDA kernel behind each wrapper whose rows also carry the kernel's own
+# device time (the profiler's), beside the CUDA-events time of the wrapper.
+OWN_TIME = {"malta_ac": "malta_kernel", "malta_diffmap": "malta_diffmap_kernel"}
 
 # ---------------------------------------------------------------- the codec
 
@@ -304,13 +311,15 @@ def bound(n_bytes: float, ops: float) -> tuple:
 
 
 def malta_ops(lines_full, lines_lf) -> int:
-    """Operations per pixel of the six Malta sweeps: each line's samples
-    added, the sum squared, weighted and accumulated, on two full-pattern
-    and four lf-pattern planes, then the six plane sums."""
+    """Operations per pixel of the six Malta sweeps, as the function needs
+    them: each line's samples added and the sum squared, weighted where its
+    weight is not 1, and added to the plane's other lines, on two
+    full-pattern and four lf-pattern planes; then the six plane terms
+    summed into the two accumulators."""
     def per_plane(lines):
-        return sum(len(line) - 1 + 3 for _weight, line in lines)
+        return sum(len(line) - 1 + 1 + (weight != 1) for weight, line in lines) + len(lines) - 1
 
-    return 2 * per_plane(lines_full) + 4 * per_plane(lines_lf) + 6
+    return 2 * per_plane(lines_full) + 4 * per_plane(lines_lf) + 6 - 2
 
 
 def blur_ops(sigma: float) -> int:
@@ -326,10 +335,12 @@ def device_us(e) -> float:
 
 
 def own_device_ms(fn, kernel: str, calls: int = 10) -> Optional[float]:
-    """Mean device time per call of the CUDA kernels named ``kernel*`` that
-    ``fn`` launches, from ``torch.profiler``: the kernel alone, without the
-    host time between launches that CUDA events over a loop also count.
-    None if the profiler saw no device time."""
+    """Mean device time of one launch of the CUDA kernel named ``kernel``,
+    over ``calls`` calls of ``fn`` (each launching it once), from
+    ``torch.profiler``: the kernel alone, without the host time between
+    launches that CUDA events over a loop also count.  The mean is over the
+    launches the profiler recorded, which after a long profile of many
+    operations may be fewer than ``calls``.  None if it recorded none."""
     from torch.profiler import ProfilerActivity
 
     fn()
@@ -338,9 +349,12 @@ def own_device_ms(fn, kernel: str, calls: int = 10) -> Optional[float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
-    return us / 1e3 / calls if us else None
+    seen = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in seen)
+    if launches != calls:
+        print(f"  (the profiler recorded {launches} of {calls} launches of {kernel})")
+    return sum(device_us(e) for e in seen) / 1e3 / launches if launches else None
 
 
 def reset_launches() -> None:
@@ -475,7 +489,8 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
 
 def check_odd_shapes(device: torch.device) -> None:
     """Each kernel against its plain version where tiles are ragged on both
-    axes (widths 53 and 653, as the Pallas kernels' tests use)."""
+    axes (widths 53 and 653, as the Pallas kernels' tests use, and 52, where
+    K4 and K5 stage 16-byte chunks)."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels.blur import blur_separable
     from codec_eval_tpu_torch.kernels.cuda import blur, freqsep, malta, scale_features
@@ -483,7 +498,7 @@ def check_odd_shapes(device: torch.device) -> None:
     rng = np.random.default_rng(SEED)
     lines = (ba._MALTA_LINES_FULL, ba._MALTA_LINES_LF)
     consts = ba._fused_diffmap_consts(0.8, 1.0)
-    for b, h, w in ((2, 37, 53), (1, 67, 653)):
+    for b, h, w in ((2, 37, 53), (1, 67, 653), (2, 36, 52)):
         def planes(c, scale=1.0):
             return torch.from_numpy(rng.random((b, c, h, w), np.float32) * scale).to(device)
 
@@ -1268,23 +1283,29 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
     k4_extra = {
         "launches_masked": launches["malta_ac"], "max_abs_err_masked": k4_err,
         "at_masked": {"shapes": k4_timed.shapes,
-                      **time_check("malta_ac on the masked path", k4_timed)},
+                      **time_check("malta_ac on the masked path", k4_timed,
+                                   OWN_TIME["malta_ac"])},
     }
     return k9_row, k4_extra
 
 
-def time_check(label: str, c: Check) -> dict:
-    """Kernel, plain and library device times of one check, in turns."""
+def time_check(label: str, c: Check, own: Optional[str] = None) -> dict:
+    """Kernel, plain and library device times of one check, in turns; with
+    ``own``, also the device time of the CUDA kernels of that name alone."""
     p1, k1, k2, p2 = (time_ms(f, 10) for f in (c.plain, c.kernel, c.kernel, c.plain))
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     library_ms = time_ms(c.library, 10) if c.library is not None else None
     bound_ms, bound_by = bound(c.nbytes, c.ops)
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+    times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms}
+    if own:
+        alone = times["own_device_ms"] = own_device_ms(c.kernel, own)
+        lib += f", kernel alone {alone:.4f} ms" if alone else ", kernel alone not measured"
     print(f"  {label} ({c.shapes}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
           f"bound {bound_ms:.4f} ms by {bound_by} ({c.nbytes / 1e6:.1f} MB, "
           f"{c.ops / 1e9:.2f} Gop)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    return times
 
 
 def profile(ref_u8: np.ndarray, batch: np.ndarray) -> None:
@@ -1381,6 +1402,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _lib.load()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    for line in _lib.ptxas_report("malta"):
+        entry = re.search(r"entry function '\w*?\d(malta_\w*?kernel)(?:ILi(\d+)E)?", line)
+        if entry:
+            print(f"  ptxas -v, {entry.group(1)}<{entry.group(2)}>:")
+        elif "Compile time" not in line and "Function properties" not in line:
+            print(f"    {line}")
 
     def done(phase, t0: float) -> None:
         print(f"  phase {phase}: {time.perf_counter() - t0:.2f} s")
@@ -1432,13 +1459,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": fn.source, "replaces": fn.replaces,
             "launches": (launches if small else launches_big)[name],
             "max_abs_err": max(big.err, small.err if small else 0.0),
-            **time_check(name, small or big),
+            **time_check(name, small or big, OWN_TIME.get(name)),
             "shapes": (small or big).shapes,
             "launches_512": launches[name], "launches_2048": launches_big[name],
             "max_abs_err_512": small.err if small else None, "max_abs_err_2048": big.err,
         }
         if small:
-            row["at_2048"] = time_check(f"{name} on the {BIG} px path", big)
+            row["at_2048"] = time_check(f"{name} on the {BIG} px path", big, OWN_TIME.get(name))
         rows.append(row)
     time_check("blur (half resolution)", k6_half)
     for shapes, fused, unfused in flows:

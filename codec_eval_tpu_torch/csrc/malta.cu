@@ -18,132 +18,306 @@
 // writes sqrt(max(total, 0)): the (B, H, W) diffmap.  The diff planes and
 // the accumulators never reach device memory.
 //
-// What bounds them on an H100: the shared-memory sweep.  K4 reads six
-// planes and writes two (32 bytes per pixel of device traffic); K5 reads
-// the candidate's 11 planes and writes one (48 bytes per pixel, the
-// reference planes being shared by the batch).  Both do 512 shared-memory
-// reads and adds per pixel: 2 x 96 samples on the 12 full lines of the UHF
-// planes, 4 x 80 on the 16 lf lines of the others, about 780 flops with the
-// squares and weights, which is at or above the card's f32 flop/byte
-// balance.
+// What bounds them on an H100: operations.  Per output pixel the six sweeps
+// add 2 x 96 samples on the 12 full lines and 4 x 80 on the 16 lf lines,
+// then square the 88 line sums, weight the 8 whose weight is 2, and sum
+// them into the two accumulators: 606 f32 additions and multiplications, as
+// chip_smoke.py counts them, against 32 (K4) or about 53 (K5) bytes of
+// device traffic.  At the card's peak of 67 TFLOP/s the bytes take a little
+// longer (chip_smoke.py's bound), but the sources build with -fmad=false,
+// so that results match the plain versions bit for bit; without FMA the
+// card issues 128 f32 instructions per clock and SM, half the 256 flops
+// that its peak counts.  So the floor these kernels can reach is twice the
+// operations' time at peak, above the bytes' time: about 0.12 ms for K4 at
+// 512 px, B=25, and 0.9 ms for K5 at 2048 px, B=10.
 //
-// The simple design: one 32x32 output tile per block, four pixels per
-// thread; the six planes are staged one at a time, each with its 4-pixel
-// halo, into shared memory (K5 computes the prologue from the reference and
-// candidate values while it stages), and every thread keeps its pixels' two
-// accumulators in registers across the six planes, so each plane is read
-// from device memory once per tile.  K5's epilogue reads the remaining
-// per-pixel inputs straight from device memory.  The line tables sit in
-// __constant__ memory: every thread of a warp reads the same entry at the
-// same time, which constant memory broadcasts, and a thread reads each
-// sample's offset once for its four pixels.  Lines, samples and epilogue
-// terms are added in the order of the plain versions, so results match them
-// bit for bit.
+// The design:
+// - The line tables are compile-time constants (kLinesFull, kLinesLf), and
+//   every loop over rows, lines and samples is unrolled, so each sample's
+//   offset is an immediate of its shared-memory load.  The wrappers refuse
+//   other tables on the card.
+// - Register-blocked line sums.  Each thread owns a run of P = 4 pixels down
+//   one tile column.  It streams the P + 8 rows of the run's window top to
+//   bottom, loads the samples of each row that its lines take into
+//   registers once, and adds each into every line sum that takes it.  Every
+//   line lists its samples in nondecreasing row order, so each sum still adds
+//   its samples in the plain version's order; a pixel's weighted squares are
+//   added in line order once its last row has passed.  That is 22 (full) or
+//   24 (lf) shared-memory loads per pixel and plane, 140 per pixel in all,
+//   down from 508, with at most 64 line sums live per thread: 80 registers,
+//   three blocks of 256 threads on each SM.
+// - Staging overlaps the sweep.  Each plane's window (the 32 x 32 output
+//   tile and its 4-pixel halo, 40 x 40) is copied into shared memory with
+//   cp.async, zero-filled outside the image, into a double buffer: the next
+//   plane's copy runs under the current plane's sweep, with one barrier per
+//   plane.  Where rows are a multiple of 4 floats and the planes 16-byte
+//   aligned, each copy moves 4 floats (V = 4), else one (V = 1).
+// - K5 keeps its fusion: each thread turns the candidate samples that it
+//   staged into diff samples in place (the prologue, once per staged element,
+//   its two divisions kept as divisions), then all sweep them as K4 does.
+//   Its epilogue reads the remaining per-pixel inputs from device memory.
+// Lines, samples, planes and epilogue terms add in the order of the plain
+// versions, so the results match them bit for bit.
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int R = 4;
-constexpr int TW = 32;
+constexpr int R = 4;    // line radius
+constexpr int P = 4;    // pixels per thread: a run down one column
+constexpr int TW = 32;  // output tile: one warp across, one run per warp down
 constexpr int TH = 32;
+constexpr int kThreads = TW * TH / P;
 constexpr int SW = TW + 2 * R;
 constexpr int SH = TH + 2 * R;
-constexpr int kMaxLines = 16;
-constexpr int kMaxSamples = 9;
-constexpr int kGeom = 1 + 2 * kMaxSamples;  // sample count, dy[9], dx[9]
-constexpr int kPerThread = TH * TW / ce::kThreads;
+constexpr int kWindow = SH * SW;
 
-// [kind][line]: kind 0 = full lines, kind 1 = lf lines.
-__constant__ float c_weight[2][kMaxLines];
-__constant__ int c_geom[2][kMaxLines][kGeom];
+// ------------------------------------------------------------- line tables
 
-// Pixel j of this thread is row tid/32 + 8j of the tile, so a warp reads
-// one tile row: consecutive shared-memory words, no bank conflicts.
-__device__ __forceinline__ void tile_centers(int* center) {
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = threadIdx.x + j * ce::kThreads;
-    center[j] = (i / TW + R) * SW + i % TW + R;
-  }
-}
+struct Sample {
+  int dy, dx;
+};
 
-// Sum over the lines of one pattern of weight * (line sum)^2 at this
-// thread's pixels of a staged plane.  Each line's offsets are read once and
-// applied to all the thread's pixels; per pixel, samples and lines add in
-// the plain version's order.
-__device__ __forceinline__ void sweep(const float* tile, const int* center, int kind,
-                                      int nlines, float* term) {
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) term[j] = 0.f;
-  for (int l = 0; l < nlines; ++l) {
-    const int* g = c_geom[kind][l];
-    const int ns = g[0];
-    float s[kPerThread];
-    int off = g[1] * SW + g[1 + kMaxSamples];
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) s[j] = tile[center[j] + off];
-    for (int q = 1; q < ns; ++q) {
-      off = g[1 + q] * SW + g[1 + kMaxSamples + q];
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j) s[j] = s[j] + tile[center[j] + off];
+// {weight, sample count, {{dy, dx}, ...}}, with the samples in order.
+struct Line {
+  int weight, count;
+  Sample at[9];
+};
+
+constexpr int kFull = 0;
+constexpr int kLf = 1;
+constexpr int kNumFull = 12;
+constexpr int kNumLf = 16;
+
+// kernels/cuda/malta.py LINES_FULL, line for line and sample for sample.
+constexpr Line kLinesFull[kNumFull] = {
+    {1, 7, {{-3, -3}, {-2, -2}, {-1, -1}, {0, 0}, {1, 1}, {2, 2}, {3, 3}}},
+    {1, 7, {{-3, 3}, {-2, 2}, {-1, 1}, {0, 0}, {1, -1}, {2, -2}, {3, -3}}},
+    {2, 9, {{-4, -1}, {-3, -1}, {-2, -1}, {-1, 0}, {0, 0}, {1, 0}, {2, 1}, {3, 1}, {4, 1}}},
+    {2, 9, {{-4, 1}, {-3, 1}, {-2, 1}, {-1, 0}, {0, 0}, {1, 0}, {2, -1}, {3, -1}, {4, -1}}},
+    {2, 9, {{-1, -4}, {-1, -3}, {-1, -2}, {0, -1}, {0, 0}, {0, 1}, {1, 2}, {1, 3}, {1, 4}}},
+    {2, 9, {{-1, 2}, {-1, 3}, {-1, 4}, {0, -1}, {0, 0}, {0, 1}, {1, -4}, {1, -3}, {1, -2}}},
+    {1, 9, {{-4, 0}, {-3, 0}, {-2, 0}, {-1, 0}, {0, 0}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}},
+    {1, 9, {{0, -4}, {0, -3}, {0, -2}, {0, -1}, {0, 0}, {0, 1}, {0, 2}, {0, 3}, {0, 4}}},
+    {1, 7, {{-3, -2}, {-2, -1}, {-1, -1}, {0, 0}, {1, 1}, {2, 1}, {3, 2}}},
+    {1, 7, {{-3, 2}, {-2, 1}, {-1, 1}, {0, 0}, {1, -1}, {2, -1}, {3, -2}}},
+    {1, 7, {{-2, -3}, {-1, -2}, {-1, -1}, {0, 0}, {1, 1}, {1, 2}, {2, 3}}},
+    {1, 7, {{-2, 3}, {-1, 1}, {-1, 2}, {0, 0}, {1, -2}, {1, -1}, {2, -3}}},
+};
+
+// kernels/cuda/malta.py LINES_LF, line for line and sample for sample.
+constexpr Line kLinesLf[kNumLf] = {
+    {1, 5, {{-4, -2}, {-2, -1}, {0, 0}, {2, 1}, {4, 2}}},
+    {1, 5, {{-4, 2}, {-2, 1}, {0, 0}, {2, -1}, {4, -2}}},
+    {1, 5, {{-2, -4}, {-1, -2}, {0, 0}, {1, 2}, {2, 4}}},
+    {1, 5, {{-2, 4}, {-1, 2}, {0, 0}, {1, -2}, {2, -4}}},
+    {1, 5, {{-3, -3}, {-2, -2}, {0, 0}, {2, 2}, {3, 3}}},
+    {1, 5, {{-3, 3}, {-2, 2}, {0, 0}, {2, -2}, {3, -3}}},
+    {1, 5, {{-4, -1}, {-2, -1}, {0, 0}, {2, 1}, {4, 1}}},
+    {1, 5, {{-4, 1}, {-2, 1}, {0, 0}, {2, -1}, {4, -1}}},
+    {1, 5, {{-1, -4}, {-1, -2}, {0, 0}, {1, 2}, {1, 4}}},
+    {1, 5, {{-1, 2}, {-1, 4}, {0, 0}, {1, -4}, {1, -2}}},
+    {1, 5, {{-4, 0}, {-2, 0}, {0, 0}, {2, 0}, {4, 0}}},
+    {1, 5, {{0, -4}, {0, -2}, {0, 0}, {0, 2}, {0, 4}}},
+    {1, 5, {{-3, -2}, {-2, -1}, {0, 0}, {2, 1}, {3, 2}}},
+    {1, 5, {{-3, 2}, {-2, 1}, {0, 0}, {2, -1}, {3, -2}}},
+    {1, 5, {{-2, -3}, {-1, -2}, {0, 0}, {1, 2}, {2, 3}}},
+    {1, 5, {{-2, 3}, {-1, 2}, {0, 0}, {1, -2}, {2, -3}}},
+};
+
+// Every sample within the radius, and each line's rows nondecreasing: the
+// sweep streams rows top to bottom and adds samples in the order it meets
+// them.
+constexpr bool streamable(const Line* lines, int n) {
+  for (int l = 0; l < n; ++l) {
+    if (lines[l].count < 1 || lines[l].count > 9) return false;
+    for (int q = 0; q < lines[l].count; ++q) {
+      const Sample s = lines[l].at[q];
+      if (s.dy < -R || s.dy > R || s.dx < -R || s.dx > R) return false;
+      if (q > 0 && s.dy < lines[l].at[q - 1].dy) return false;
     }
-    const float wl = c_weight[kind][l];
+  }
+  return true;
+}
+static_assert(streamable(kLinesFull, kNumFull) && streamable(kLinesLf, kNumLf),
+              "a line's samples must lie within the radius, rows in order");
+
+// The tables' entries, read only in constant expressions.
+__host__ __device__ constexpr int num_lines(int kind) { return kind == kFull ? kNumFull : kNumLf; }
+__host__ __device__ constexpr int line_weight(int kind, int l) {
+  return kind == kFull ? kLinesFull[l].weight : kLinesLf[l].weight;
+}
+__host__ __device__ constexpr int line_count(int kind, int l) {
+  return kind == kFull ? kLinesFull[l].count : kLinesLf[l].count;
+}
+__host__ __device__ constexpr int sample_dy(int kind, int l, int q) {
+  return kind == kFull ? kLinesFull[l].at[q].dy : kLinesLf[l].at[q].dy;
+}
+__host__ __device__ constexpr int sample_dx(int kind, int l, int q) {
+  return kind == kFull ? kLinesFull[l].at[q].dx : kLinesLf[l].at[q].dx;
+}
+
+// Whether row rr of a run's window (rr = p + R + dy for pixel p) holds a
+// sample of the pattern at column offset dx.
+__host__ __device__ constexpr bool row_needs(int kind, int rr, int dx) {
+  for (int p = 0; p < P; ++p)
+    for (int l = 0; l < num_lines(kind); ++l)
+      for (int q = 0; q < line_count(kind, l); ++q)
+        if (sample_dy(kind, l, q) == rr - R - p && sample_dx(kind, l, q) == dx) return true;
+  return false;
+}
+
+// ------------------------------------------------------------------- sweep
+
+template <class F, int... I>
+__device__ __forceinline__ void unroll_impl(F& f, std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+
+// f(std::integral_constant<int, i>{}) for i = 0 .. N - 1, in order.
+template <int N, class F>
+__device__ __forceinline__ void unroll(F&& f) {
+  unroll_impl(f, std::make_integer_sequence<int, N>{});
+}
+
+// term[p] = the sum over the pattern's lines, in order, of weight * (line
+// sum)^2 at pixel p of this thread's run.  `run` points at the window
+// element of the run's top-left sample: pixel p's sample (dy, dx) is
+// run[(p + R + dy) * SW + R + dx].
+template <int Kind>
+__device__ __forceinline__ void sweep(const float* run, float (&term)[P]) {
+  constexpr int L = num_lines(Kind);
+  float sum[P][L];
+  unroll<P + 2 * R>([&](auto row) {
+    constexpr int rr = decltype(row)::value;
+    float v[2 * R + 1];
+    unroll<2 * R + 1>([&](auto col) {
+      constexpr int c = decltype(col)::value;
+      if constexpr (row_needs(Kind, rr, c - R)) v[c] = run[rr * SW + c];
+    });
+    unroll<P>([&](auto pix) {
+      constexpr int p = decltype(pix)::value;
+      constexpr int dy = rr - R - p;
+      if constexpr (dy >= -R && dy <= R) {
+        unroll<L>([&](auto line) {
+          constexpr int l = decltype(line)::value;
+          unroll<line_count(Kind, l)>([&](auto sample) {
+            constexpr int q = decltype(sample)::value;
+            if constexpr (sample_dy(Kind, l, q) == dy) {
+              constexpr int c = sample_dx(Kind, l, q) + R;
+              if constexpr (q == 0) sum[p][l] = v[c];
+              else sum[p][l] = sum[p][l] + v[c];
+            }
+          });
+        });
+        if constexpr (dy == R) {  // the pixel's last row: every line is complete
+          unroll<L>([&](auto line) {
+            constexpr int l = decltype(line)::value;
+            constexpr float weight = line_weight(Kind, l);
+            const float sq = weight * (sum[p][l] * sum[p][l]);
+            if constexpr (l == 0) term[p] = sq;
+            else term[p] = term[p] + sq;
+          });
+        }
+      }
+    });
+  });
+}
+
+// Planes 0 and 1 take the full lines, the others the lf lines; planes 0, 2,
+// 4 feed ac1 (Y), planes 1, 3, 5 feed ac0 (X).
+__device__ __forceinline__ void accumulate(const float* run, int c, float (&ac0)[P],
+                                           float (&ac1)[P]) {
+  float term[P];
+  if (c < 2) sweep<kFull>(run, term);
+  else sweep<kLf>(run, term);
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) term[j] = term[j] + wl * (s[j] * s[j]);
+  for (int p = 0; p < P; ++p) {
+    if (c % 2) ac0[p] = ac0[p] + term[p];
+    else ac1[p] = ac1[p] + term[p];
   }
 }
 
-// Planes 0, 2, 4 feed ac1 (Y), planes 1, 3, 5 feed ac0 (X); planes 0 and 1
-// take the full lines, the others the lf lines.
-__device__ __forceinline__ void accumulate(const float* tile, const int* center, int ch,
-                                           int nlines_full, int nlines_lf, float* ac0,
-                                           float* ac1) {
-  const int kind = ch < 2 ? 0 : 1;
-  float term[kPerThread];
-  sweep(tile, center, kind, kind == 0 ? nlines_full : nlines_lf, term);
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    if (ch % 2 == 0) ac1[j] = ac1[j] + term[j];
-    else ac0[j] = ac0[j] + term[j];
+// ----------------------------------------------------------------- staging
+
+// f(i, in, gi) for this thread's chunks of V consecutive elements of the
+// window at output tile (y0, x0): i indexes the chunk's first element in
+// the window, gi in the image plane (valid where in).  Consecutive threads
+// take consecutive chunks, so no lane idles at the end of a 40-wide row.
+// With V = 4 the image width is a multiple of 4, so a chunk lies wholly
+// inside or wholly outside the image.
+template <int V, class F>
+__device__ __forceinline__ void for_window(int y0, int x0, int h, int w, F&& f) {
+  constexpr int kRow = SW / V;
+  for (int k = threadIdx.x; k < SH * kRow; k += kThreads) {
+    const int sy = k / kRow, sx = k % kRow * V;
+    const int gy = y0 - R + sy, gx = x0 - R + sx;
+    f(sy * SW + sx, gy >= 0 && gy < h && gx >= 0 && gx < w, (size_t)gy * w + gx);
   }
 }
 
-__global__ void __launch_bounds__(ce::kThreads)
-malta_kernel(const float* __restrict__ diffs, float* __restrict__ out, int h, int w,
-             int nlines_full, int nlines_lf) {
-  __shared__ float tile[SH * SW];
-  const int tid = threadIdx.x;
+// Start copying one plane's window into dst, zeros outside the image:
+// 16-byte copies with V = 4, 4-byte copies with V = 1.
+template <int V>
+__device__ __forceinline__ void stage(float* dst, const float* plane, int y0, int x0, int h,
+                                      int w) {
+  for_window<V>(y0, x0, h, w, [&](int i, bool in, size_t gi) {
+    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    if constexpr (V == 4)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                   :: "r"(to), "l"(plane + (in ? gi : 0)), "r"(in ? 16 : 0));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(to), "l"(plane + (in ? gi : 0)), "r"(in ? 4 : 0));
+  });
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's copies.
+__device__ __forceinline__ void staged() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Window element of the top-left sample of this thread's run.
+__device__ __forceinline__ int run_origin() {
+  return (threadIdx.x / 32) * P * SW + threadIdx.x % 32;
+}
+
+// Image offset of pixel p of this thread's run, or -1 outside the image.
+__device__ __forceinline__ long long pixel(int p, int y0, int x0, int h, int w) {
+  const int y = y0 + (threadIdx.x / 32) * P + p, x = x0 + threadIdx.x % 32;
+  return y < h && x < w ? (long long)y * w + x : -1;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, 3)
+malta_kernel(const float* __restrict__ diffs, float* __restrict__ out, int h, int w) {
+  __shared__ __align__(16) float window[2][kWindow];
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const size_t plane = (size_t)h * w;
   const float* src = diffs + (size_t)blockIdx.z * 6 * plane;
+  const int run = run_origin();
 
-  int center[kPerThread];
-  float ac0[kPerThread], ac1[kPerThread];
-  tile_centers(center);
+  float ac0[P], ac1[P];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) ac0[j] = ac1[j] = 0.f;
+  for (int p = 0; p < P; ++p) ac0[p] = ac1[p] = 0.f;
 
-  for (int ch = 0; ch < 6; ++ch) {
-    for (int i = tid; i < SH * SW; i += ce::kThreads) {
-      const int sy = i / SW, sx = i % SW;
-      const int gy = y0 + sy - R, gx = x0 + sx - R;
-      const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-      tile[i] = in ? src[ch * plane + (size_t)gy * w + gx] : 0.f;
-    }
+  stage<V>(window[0], src, y0, x0, h, w);
+#pragma unroll 1
+  for (int c = 0; c < 6; ++c) {
+    staged();
+    // Plane c is in; every thread is done with plane c - 1's buffer.
     __syncthreads();
-    accumulate(tile, center, ch, nlines_full, nlines_lf, ac0, ac1);
-    __syncthreads();
+    if (c < 5) stage<V>(window[(c + 1) % 2], src + (c + 1) * plane, y0, x0, h, w);
+    accumulate(window[c % 2] + run, c, ac0, ac1);
   }
 
   float* dst = out + (size_t)blockIdx.z * 2 * plane;
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = tid + j * ce::kThreads;
-    const int gy = y0 + i / TW, gx = x0 + i % TW;
-    if (gy >= h || gx >= w) continue;
-    const size_t gi = (size_t)gy * w + gx;
-    dst[gi] = ac0[j];
-    dst[plane + gi] = ac1[j];
+  for (int p = 0; p < P; ++p) {
+    const long long gi = pixel(p, y0, x0, h, w);
+    if (gi < 0) continue;
+    dst[gi] = ac0[p];
+    dst[plane + gi] = ac1[p];
   }
 }
 
@@ -151,7 +325,7 @@ malta_kernel(const float* __restrict__ diffs, float* __restrict__ out, int h, in
 
 // The Malta prologue: the asymmetric diff of reference value l0 and
 // candidate value l1 (kernels/butteraugli.py _malta_prologue), with the
-// per-channel constants n2g, n2l, n1 resolved on the host.  0 for 0, 0.
+// per-channel constants n2g, n2l, n1 resolved on the host.
 __device__ __forceinline__ float prologue(float l0, float l1, float n2g, float n2l,
                                           float n1) {
   const float diff = l0 - l1;
@@ -189,54 +363,60 @@ __device__ __forceinline__ float l2_asymmetric(float v0, float v1, float kg, flo
 
 // ch: per channel (n2g, n2l, n1).  epi: 0.8 * (L2 hf X >, X <, Y >, Y <),
 // then WMUL mf X, Y, B, lf X, Y, B, and xmul.
-__global__ void __launch_bounds__(ce::kThreads)
+template <int V>
+__global__ void __launch_bounds__(kThreads, 3)
 malta_diffmap_kernel(const float* __restrict__ cand6, const float* __restrict__ ref6,
                      const float* __restrict__ cand_rest, const float* __restrict__ ref_rest,
                      const float* __restrict__ dac, const float* __restrict__ masks,
-                     float* __restrict__ out, int h, int w, int nlines_full, int nlines_lf,
-                     ce::Floats<18> ch, ce::Floats<11> epi) {
-  __shared__ float tile[SH * SW];
-  const int tid = threadIdx.x;
+                     float* __restrict__ out, int h, int w, ce::Floats<18> ch,
+                     ce::Floats<11> epi) {
+  // The candidate's windows become diff windows in place.
+  __shared__ __align__(16) float ref_window[2][kWindow];
+  __shared__ __align__(16) float cand_window[2][kWindow];
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
   const size_t plane = (size_t)h * w;
   const size_t b = blockIdx.z;
   const float* cand = cand6 + b * 6 * plane;
+  const int run = run_origin();
 
-  int center[kPerThread];
-  float ac0[kPerThread], ac1[kPerThread];
-  tile_centers(center);
+  float ac0[P], ac1[P];
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) ac0[j] = ac1[j] = 0.f;
+  for (int p = 0; p < P; ++p) ac0[p] = ac1[p] = 0.f;
 
+  stage<V>(ref_window[0], ref6, y0, x0, h, w);
+  stage<V>(cand_window[0], cand, y0, x0, h, w);
+#pragma unroll 1
   for (int c = 0; c < 6; ++c) {
+    staged();
+    // Each thread turns the samples it staged into diff samples: no barrier
+    // is needed between its copies and the prologue.
     const float n2g = ch.v[3 * c], n2l = ch.v[3 * c + 1], n1 = ch.v[3 * c + 2];
-    for (int i = tid; i < SH * SW; i += ce::kThreads) {
-      const int sy = i / SW, sx = i % SW;
-      const int gy = y0 + sy - R, gx = x0 + sx - R;
-      float d = 0.f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        const size_t gi = c * plane + (size_t)gy * w + gx;
-        d = prologue(ref6[gi], cand[gi], n2g, n2l, n1);
-      }
-      tile[i] = d;
+    float* t = cand_window[c % 2];
+    const float* r = ref_window[c % 2];
+    for_window<V>(y0, x0, h, w, [&](int i, bool in, size_t) {
+#pragma unroll
+      for (int e = i; e < i + V; ++e) t[e] = in ? prologue(r[e], t[e], n2g, n2l, n1) : 0.f;
+    });
+    // Plane c's diffs are in; every thread is done with plane c - 1's buffers.
+    __syncthreads();
+    if (c < 5) {
+      stage<V>(ref_window[(c + 1) % 2], ref6 + (c + 1) * plane, y0, x0, h, w);
+      stage<V>(cand_window[(c + 1) % 2], cand + (c + 1) * plane, y0, x0, h, w);
     }
-    __syncthreads();
-    accumulate(tile, center, c, nlines_full, nlines_lf, ac0, ac1);
-    __syncthreads();
+    accumulate(t + run, c, ac0, ac1);
   }
 
   const float xmul = epi.v[10];
   const float* crest = cand_rest + b * 4 * plane;
   float* dst = out + b * plane;
 #pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    const int i = tid + j * ce::kThreads;
-    const int gy = y0 + i / TW, gx = x0 + i % TW;
-    if (gy >= h || gx >= w) continue;
-    const size_t gi = (size_t)gy * w + gx;
+  for (int p = 0; p < P; ++p) {
+    const long long gl = pixel(p, y0, x0, h, w);
+    if (gl < 0) continue;
+    const size_t gi = gl;
     // Six-plane order: uhf_y, uhf_x, hf_y, hf_x, mf_y, mf_x.
-    float a0 = ac0[j] + l2_asymmetric(ref6[3 * plane + gi], cand[3 * plane + gi], epi.v[0], epi.v[1]);
-    float a1 = ac1[j] + l2_asymmetric(ref6[2 * plane + gi], cand[2 * plane + gi], epi.v[2], epi.v[3]);
+    float a0 = ac0[p] + l2_asymmetric(ref6[3 * plane + gi], cand[3 * plane + gi], epi.v[0], epi.v[1]);
+    float a1 = ac1[p] + l2_asymmetric(ref6[2 * plane + gi], cand[2 * plane + gi], epi.v[2], epi.v[3]);
     const float d_mfx = ref6[5 * plane + gi] - cand[5 * plane + gi];
     a0 = a0 + epi.v[4] * d_mfx * d_mfx;
     const float d_mfy = ref6[4 * plane + gi] - cand[4 * plane + gi];
@@ -255,47 +435,31 @@ malta_diffmap_kernel(const float* __restrict__ cand6, const float* __restrict__ 
   }
 }
 
-// Copy the line tables into constant memory on the launch stream, ahead of
-// the kernel that reads them.
-cudaError_t load_tables(const float* weights, const int* geometry, int nlines_full,
-                        int nlines_lf, cudaStream_t s) {
-  if (nlines_full > kMaxLines || nlines_lf > kMaxLines) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_weight, weights, sizeof(c_weight), 0,
-                                            cudaMemcpyHostToDevice, s);
-  if (err != cudaSuccess) return err;
-  return cudaMemcpyToSymbolAsync(c_geom, geometry, sizeof(c_geom), 0,
-                                 cudaMemcpyHostToDevice, s);
-}
+// Whether 16-byte copies (V = 4) can read a plane that starts at p.
+bool aligned(const float* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// diffs: (b, 6, h, w); out: (b, 2, h, w).  weights: (2, 16) host floats and
-// geometry: (2, 16, 19) host ints (per line: sample count, 9 dy, 9 dx).
-extern "C" int ce_malta_ac(const float* diffs, float* out, int b, int h, int w,
-                           const float* weights, const int* geometry, int nlines_full,
-                           int nlines_lf, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = load_tables(weights, geometry, nlines_full, nlines_lf, s);
-  if (err != cudaSuccess) return (int)err;
+// diffs: (b, 6, h, w); out: (b, 2, h, w).
+extern "C" int ce_malta_ac(const float* diffs, float* out, int b, int h, int w, void* stream) {
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
-  malta_kernel<<<grid, ce::kThreads, 0, s>>>(diffs, out, h, w, nlines_full, nlines_lf);
+  auto kernel = w % 4 == 0 && aligned(diffs) ? malta_kernel<4> : malta_kernel<1>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(diffs, out, h, w);
   return (int)cudaGetLastError();
 }
 
 // cand6: (b, 6, h, w); ref6: (6, h, w); cand_rest: (b, 4, h, w); ref_rest:
-// (4, h, w); dac: (b, h, w); masks: (2, h, w); out: (b, h, w).  Line tables
-// as for ce_malta_ac; ch: 18 host floats; epi: 11 host floats.
+// (4, h, w); dac: (b, h, w); masks: (2, h, w); out: (b, h, w).  ch: 18 host
+// floats; epi: 11 host floats.
 extern "C" int ce_malta_diffmap(const float* cand6, const float* ref6, const float* cand_rest,
                                 const float* ref_rest, const float* dac, const float* masks,
-                                float* out, int b, int h, int w, const float* weights,
-                                const int* geometry, int nlines_full, int nlines_lf,
-                                const float* ch, const float* epi, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = load_tables(weights, geometry, nlines_full, nlines_lf, s);
-  if (err != cudaSuccess) return (int)err;
+                                float* out, int b, int h, int w, const float* ch,
+                                const float* epi, void* stream) {
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
-  malta_diffmap_kernel<<<grid, ce::kThreads, 0, s>>>(
-      cand6, ref6, cand_rest, ref_rest, dac, masks, out, h, w, nlines_full, nlines_lf,
-      ce::load_floats<18>(ch), ce::load_floats<11>(epi));
+  auto kernel = w % 4 == 0 && aligned(cand6) && aligned(ref6) ? malta_diffmap_kernel<4>
+                                                               : malta_diffmap_kernel<1>;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      cand6, ref6, cand_rest, ref_rest, dac, masks, out, h, w, ce::load_floats<18>(ch),
+      ce::load_floats<11>(epi));
   return (int)cudaGetLastError();
 }

@@ -56,7 +56,14 @@ from .cuda.freqsep import (
     opsin_from_blurred,
     opsin_xyb_batch,
 )
-from .cuda.malta import l2_asymmetric, malta_ac_batch, malta_diffmap_batch, malta_prologue
+from .cuda.malta import (
+    LINES_FULL,
+    LINES_LF,
+    l2_asymmetric,
+    malta_ac_batch,
+    malta_diffmap_batch,
+    malta_prologue,
+)
 from .cuda.maskac import mask_diff_ac_batch
 
 SIGMA_LF = 7.1559334
@@ -141,41 +148,9 @@ _MASK_GLOBAL_SCALE = 0.0710417702794075
 _SUPERSAMPLE_W = 0.5
 _SUPERSAMPLE_KEEP = 0.85
 
-# Malta line patterns (dy, dx).  Full variant: the slope-4 / slope-1/4 lines
-# appear twice in the model's unrolled sum, hence weight 2.
-_MALTA_LINES_FULL: Tuple[Tuple[float, Tuple[Tuple[int, int], ...]], ...] = (
-    (1.0, tuple((k, k) for k in range(-3, 4))),
-    (1.0, tuple((k, -k) for k in range(-3, 4))),
-    (2.0, ((-4, -1), (-3, -1), (-2, -1), (-1, 0), (0, 0), (1, 0), (2, 1), (3, 1), (4, 1))),
-    (2.0, ((-4, 1), (-3, 1), (-2, 1), (-1, 0), (0, 0), (1, 0), (2, -1), (3, -1), (4, -1))),
-    (2.0, ((-1, -4), (-1, -3), (-1, -2), (0, -1), (0, 0), (0, 1), (1, 2), (1, 3), (1, 4))),
-    (2.0, ((-1, 2), (-1, 3), (-1, 4), (0, -1), (0, 0), (0, 1), (1, -4), (1, -3), (1, -2))),
-    (1.0, tuple((k, 0) for k in range(-4, 5))),
-    (1.0, tuple((0, k) for k in range(-4, 5))),
-    (1.0, ((-3, -2), (-2, -1), (-1, -1), (0, 0), (1, 1), (2, 1), (3, 2))),
-    (1.0, ((-3, 2), (-2, 1), (-1, 1), (0, 0), (1, -1), (2, -1), (3, -2))),
-    (1.0, ((-2, -3), (-1, -2), (-1, -1), (0, 0), (1, 1), (1, 2), (2, 3))),
-    (1.0, ((-2, 3), (-1, 1), (-1, 2), (0, 0), (1, -2), (1, -1), (2, -3))),
-)
-
-_MALTA_LINES_LF: Tuple[Tuple[float, Tuple[Tuple[int, int], ...]], ...] = (
-    (1.0, ((-4, -2), (-2, -1), (0, 0), (2, 1), (4, 2))),
-    (1.0, ((-4, 2), (-2, 1), (0, 0), (2, -1), (4, -2))),
-    (1.0, ((-2, -4), (-1, -2), (0, 0), (1, 2), (2, 4))),
-    (1.0, ((-2, 4), (-1, 2), (0, 0), (1, -2), (2, -4))),
-    (1.0, ((-3, -3), (-2, -2), (0, 0), (2, 2), (3, 3))),
-    (1.0, ((-3, 3), (-2, 2), (0, 0), (2, -2), (3, -3))),
-    (1.0, ((-4, -1), (-2, -1), (0, 0), (2, 1), (4, 1))),
-    (1.0, ((-4, 1), (-2, 1), (0, 0), (2, -1), (4, -1))),
-    (1.0, ((-1, -4), (-1, -2), (0, 0), (1, 2), (1, 4))),
-    (1.0, ((-1, 2), (-1, 4), (0, 0), (1, -4), (1, -2))),
-    (1.0, ((-4, 0), (-2, 0), (0, 0), (2, 0), (4, 0))),
-    (1.0, ((0, -4), (0, -2), (0, 0), (0, 2), (0, 4))),
-    (1.0, ((-3, -2), (-2, -1), (0, 0), (2, 1), (3, 2))),
-    (1.0, ((-3, 2), (-2, 1), (0, 0), (2, -1), (3, -2))),
-    (1.0, ((-2, -3), (-1, -2), (0, 0), (1, 2), (2, 3))),
-    (1.0, ((-2, 3), (-1, 2), (0, 0), (1, -2), (2, -3))),
-)
+# Malta line patterns (dy, dx), compiled into the Malta kernels (K4, K5).
+_MALTA_LINES_FULL = LINES_FULL
+_MALTA_LINES_LF = LINES_LF
 
 # (band, channel, dest_ac, asym_kind, weight, norm1, mulli, pattern), in the
 # order of the stacked Malta diff planes.

@@ -34,8 +34,13 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: ``-fmad=false`` keeps every multiply and add separately rounded, as
 #: PyTorch's elementwise ops are, so a kernel's stencil arithmetic matches
 #: its plain version bit for bit wherever the summation order is the same.
-#: The kernels are bound by memory traffic, not by FMA throughput.
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
+#: Most kernels are bound by memory traffic; the Malta sweeps (K4, K5) are
+#: bound by operations, and without FMA the card issues half the f32
+#: operations per clock that its peak counts.  ``-Xptxas -v`` reports each
+#: kernel's registers, shared memory and spills into the build log.
+NVCC_FLAGS = (
+    *ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -49,11 +54,10 @@ SIGNATURES = {
     "ce_opsin_xyb": (P, P, P, I, I, I, P, P, P),
     # xyb, lf, recip332, recip156, out, b, h, w, consts, taps332, taps156, stream
     "ce_bands": (P, P, P, P, P, I, I, I, P, P, P, P),
-    # diffs, out, b, h, w, weights, geometry, nlines_full, nlines_lf, stream
-    "ce_malta_ac": (P, P, I, I, I, P, P, I, I, P),
-    # cand6, ref6, cand_rest, ref_rest, dac, masks, out, b, h, w, weights,
-    # geometry, nlines_full, nlines_lf, ch, epi, stream
-    "ce_malta_diffmap": (P, P, P, P, P, P, P, I, I, I, P, P, I, I, P, P, P),
+    # diffs, out, b, h, w, stream
+    "ce_malta_ac": (P, P, I, I, I, P),
+    # cand6, ref6, cand_rest, ref_rest, dac, masks, out, b, h, w, ch, epi, stream
+    "ce_malta_diffmap": (P, P, P, P, P, P, P, I, I, I, P, P, P),
     # planes, recip, out, n, h, w, taps, ntaps, stream
     "ce_blur": (P, P, P, I, I, I, P, I, P),
     # d1, b0, recip, out, b, h, w, taps, ntaps, ac_mul, stream
@@ -86,8 +90,13 @@ def library_path() -> Path:
     return BUILD_DIR / f"libcodec_eval_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def build_log_path() -> Path:
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
-    """Compile the sources unless a library for their hash exists."""
+    """Compile the sources unless a library for their hash exists; the
+    compiler's output goes to ``build_log_path()``."""
     out = library_path()
     if out.exists():
         return out
@@ -115,8 +124,25 @@ def build() -> Path:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        log = Path(tmp) / "build.log"
+        log.write_text("".join(f"{p.args[-1]}:\n{text}" for p, text in zip(procs, logs)))
+        os.replace(log, build_log_path())
         os.replace(lib, out)
     return out
+
+
+def ptxas_report(kernel: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of the build log (registers, shared memory,
+    spills) for each entry function whose name contains ``kernel``."""
+    lines, keep = [], False
+    for line in build_log_path().read_text().splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        elif not line.startswith(("ptxas", " ", "\t")):
+            keep = False
+        if keep:
+            lines.append(line.strip())
+    return lines
 
 
 @functools.lru_cache(maxsize=1)

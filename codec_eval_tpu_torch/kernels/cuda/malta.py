@@ -11,13 +11,16 @@ the candidates and the reference, their mf_b and LF planes, the candidate
 masking term, the reference masks, the line tables and the constants that
 ``butteraugli._fused_diffmap_consts`` resolves -> the (B, H, W) diffmap.
 
-On a CUDA tensor each launches its hand-written kernel (``csrc/malta.cu``);
-on a CPU tensor it runs the plain PyTorch version beside it.
+On a CUDA tensor each launches its hand-written kernel (``csrc/malta.cu``),
+which has ``LINES_FULL`` and ``LINES_LF`` compiled in and refuses other
+tables; on a CPU tensor it runs the plain PyTorch version beside it, which
+takes any tables.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -31,8 +34,42 @@ RADIUS = 4
 #: hf_x, mf_y, mf_x (the call order of ``_diffmap_psycho``).
 CHANNEL_SPEC = ((1, "full"), (0, "full"), (1, "lf"), (0, "lf"), (1, "lf"), (0, "lf"))
 
-_MAX_LINES = 16
-_MAX_SAMPLES = 9
+# Malta line patterns (dy, dx), the JAX package's _MALTA_LINES_FULL and
+# _MALTA_LINES_LF, compiled into csrc/malta.cu.  Full variant: the slope-4 /
+# slope-1/4 lines appear twice in the model's unrolled sum, hence weight 2.
+LINES_FULL: Tuple[Tuple[float, Tuple[Tuple[int, int], ...]], ...] = (
+    (1.0, tuple((k, k) for k in range(-3, 4))),
+    (1.0, tuple((k, -k) for k in range(-3, 4))),
+    (2.0, ((-4, -1), (-3, -1), (-2, -1), (-1, 0), (0, 0), (1, 0), (2, 1), (3, 1), (4, 1))),
+    (2.0, ((-4, 1), (-3, 1), (-2, 1), (-1, 0), (0, 0), (1, 0), (2, -1), (3, -1), (4, -1))),
+    (2.0, ((-1, -4), (-1, -3), (-1, -2), (0, -1), (0, 0), (0, 1), (1, 2), (1, 3), (1, 4))),
+    (2.0, ((-1, 2), (-1, 3), (-1, 4), (0, -1), (0, 0), (0, 1), (1, -4), (1, -3), (1, -2))),
+    (1.0, tuple((k, 0) for k in range(-4, 5))),
+    (1.0, tuple((0, k) for k in range(-4, 5))),
+    (1.0, ((-3, -2), (-2, -1), (-1, -1), (0, 0), (1, 1), (2, 1), (3, 2))),
+    (1.0, ((-3, 2), (-2, 1), (-1, 1), (0, 0), (1, -1), (2, -1), (3, -2))),
+    (1.0, ((-2, -3), (-1, -2), (-1, -1), (0, 0), (1, 1), (1, 2), (2, 3))),
+    (1.0, ((-2, 3), (-1, 1), (-1, 2), (0, 0), (1, -2), (1, -1), (2, -3))),
+)
+
+LINES_LF: Tuple[Tuple[float, Tuple[Tuple[int, int], ...]], ...] = (
+    (1.0, ((-4, -2), (-2, -1), (0, 0), (2, 1), (4, 2))),
+    (1.0, ((-4, 2), (-2, 1), (0, 0), (2, -1), (4, -2))),
+    (1.0, ((-2, -4), (-1, -2), (0, 0), (1, 2), (2, 4))),
+    (1.0, ((-2, 4), (-1, 2), (0, 0), (1, -2), (2, -4))),
+    (1.0, ((-3, -3), (-2, -2), (0, 0), (2, 2), (3, 3))),
+    (1.0, ((-3, 3), (-2, 2), (0, 0), (2, -2), (3, -3))),
+    (1.0, ((-4, -1), (-2, -1), (0, 0), (2, 1), (4, 1))),
+    (1.0, ((-4, 1), (-2, 1), (0, 0), (2, -1), (4, -1))),
+    (1.0, ((-1, -4), (-1, -2), (0, 0), (1, 2), (1, 4))),
+    (1.0, ((-1, 2), (-1, 4), (0, 0), (1, -4), (1, -2))),
+    (1.0, ((-4, 0), (-2, 0), (0, 0), (2, 0), (4, 0))),
+    (1.0, ((0, -4), (0, -2), (0, 0), (0, 2), (0, 4))),
+    (1.0, ((-3, -2), (-2, -1), (0, 0), (2, 1), (3, 2))),
+    (1.0, ((-3, 2), (-2, 1), (0, 0), (2, -1), (3, -2))),
+    (1.0, ((-2, -3), (-1, -2), (0, 0), (1, 2), (2, 3))),
+    (1.0, ((-2, 3), (-1, 2), (0, 0), (1, -2), (2, -3))),
+)
 
 
 def malta_sweep(plane: torch.Tensor, lines) -> torch.Tensor:
@@ -58,26 +95,21 @@ def malta_ac_plain(diffs: torch.Tensor, lines_full, lines_lf) -> torch.Tensor:
     return torch.stack(acc, dim=1)
 
 
-@functools.lru_cache(maxsize=4)
-def _tables(lines_full, lines_lf):
-    """Flatten the line tables for the kernel's constant memory: weights
-    (2, 16) f32 and geometry (2, 16, 19) i32 = (count, dy[9], dx[9])."""
-    weights = np.zeros((2, _MAX_LINES), np.float32)
-    geom = np.zeros((2, _MAX_LINES, 1 + 2 * _MAX_SAMPLES), np.int32)
-    for kind, lines in enumerate((lines_full, lines_lf)):
-        if len(lines) > _MAX_LINES:
-            raise ValueError(f"at most {_MAX_LINES} lines per pattern")
-        for l, (weight, line) in enumerate(lines):
-            if len(line) > _MAX_SAMPLES:
-                raise ValueError(f"at most {_MAX_SAMPLES} samples per line")
-            if any(max(abs(dy), abs(dx)) > RADIUS for dy, dx in line):
-                raise ValueError(f"line samples must lie within radius {RADIUS}")
-            weights[kind, l] = weight
-            geom[kind, l, 0] = len(line)
-            for q, (dy, dx) in enumerate(line):
-                geom[kind, l, 1 + q] = dy
-                geom[kind, l, 1 + _MAX_SAMPLES + q] = dx
-    return weights, geom
+def check_tables(lines_full, lines_lf) -> None:
+    """Raise ``ValueError`` unless the tables are the ones compiled into the
+    kernels: ``LINES_FULL`` and ``LINES_LF``, every weight and every
+    ``(dy, dx)`` in order."""
+    if lines_full is LINES_FULL and lines_lf is LINES_LF:
+        return
+
+    def table(lines):
+        return tuple((weight, tuple(map(tuple, line))) for weight, line in lines)
+
+    if (table(lines_full), table(lines_lf)) != (LINES_FULL, LINES_LF):
+        raise ValueError(
+            "the Malta kernels are compiled for LINES_FULL and LINES_LF only; "
+            "other line tables run on CPU tensors"
+        )
 
 
 def malta_ac_batch(diffs: torch.Tensor, lines_full, lines_lf) -> torch.Tensor:
@@ -85,14 +117,13 @@ def malta_ac_batch(diffs: torch.Tensor, lines_full, lines_lf) -> torch.Tensor:
     if diffs.device.type == "cpu":
         return malta_ac_plain(diffs, lines_full, lines_lf)
     _lib.require_cuda("diffs", diffs, (None, 6, None, None))
+    check_tables(lines_full, lines_lf)
     b, _, h, w = diffs.shape
-    weights, geom = _tables(tuple(lines_full), tuple(lines_lf))
     dev = diffs.device
     out = torch.empty((b, 2, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib.load().ce_malta_ac(
-            _lib.ptr(diffs), _lib.ptr(out), b, h, w, _lib.ptr(weights), _lib.ptr(geom),
-            len(lines_full), len(lines_lf), _lib.stream(dev),
+            _lib.ptr(diffs), _lib.ptr(out), b, h, w, _lib.stream(dev)
         )
     _lib.check(rc, "ce_malta_ac")
     malta_ac_batch.launches += 1
@@ -209,15 +240,14 @@ def malta_diffmap_batch(
         _lib.require_cuda(name, t, shape)
         if t.device != dev:
             raise ValueError(f"{name} and cand6 must be on one device")
-    weights, geom = _tables(tuple(lines_full), tuple(lines_lf))
+    check_tables(lines_full, lines_lf)
     ch, ep = _diffmap_args(tuple(tuple(c) for c in ch_consts), tuple(epi))
     out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib.load().ce_malta_diffmap(
             _lib.ptr(cand6), _lib.ptr(ref6), _lib.ptr(cand_rest), _lib.ptr(ref_rest),
-            _lib.ptr(dac), _lib.ptr(masks), _lib.ptr(out), b, h, w, _lib.ptr(weights),
-            _lib.ptr(geom), len(lines_full), len(lines_lf), _lib.ptr(ch), _lib.ptr(ep),
-            _lib.stream(dev),
+            _lib.ptr(dac), _lib.ptr(masks), _lib.ptr(out), b, h, w, _lib.ptr(ch),
+            _lib.ptr(ep), _lib.stream(dev),
         )
     _lib.check(rc, "ce_malta_diffmap")
     malta_diffmap_batch.launches += 1
