@@ -9,12 +9,15 @@ Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
 each failing loudly:
 
 1. device: the card's name and power limit, the kernels' build time, and
-   the compiler's registers, shared memory and spills of the Malta kernels
-   (K4, K5);
+   the compiler's registers, shared memory and spills of the strip kernels
+   (K1, K3) and the Malta kernels (K4, K5);
 2. K1-K4 against their plain PyTorch versions on the card, on the inputs the
    512 px all-metric sweep gives them (25 candidates and the reference at
    512 and 256 px, K1 at all six SSIMULACRA2 scales), and all six kernels
-   at three ragged shapes (K6 at sigma 2.7 and 7.16);
+   at three ragged shapes (K6 at sigma 2.7 and 7.16), and K1, K3 and K8
+   where the last strip and the last segment of rows are both ragged and
+   at the smallest pyramid scales (K3 bit for bit, K8 equal to K1's
+   candidate in a batch);
 3. the 512 px slice: an ``EvalSession(MetricConfig.all(), device="cuda")``
    sweep of a 512x512 image through a host block-DCT codec at 25 quality
    levels, with the reports written, every kernel's launch counter read
@@ -29,10 +32,10 @@ each failing loudly:
    kernel against its plain version on that sweep's inputs (K1 at 2048 down
    to 64 px; K2, K3 and K6 at 2048 and 1024; K4 at 1024; K5 at 2048);
 6. each kernel's time against its plain version's and its bound, on both
-   paths for K1-K4, with the kernel-alone device time of K4 and K5; for K6
-   the dense operator product it replaces; and the whole diffmap at 2048
-   and 1024 px both ways, through K5 and through the prologue, K4 and the
-   eager epilogue;
+   paths for K1-K4, with the kernel-alone device time of K1, K3, K4 and K5
+   (K8 in phase 7); for K6 the dense operator product it replaces; and the
+   whole diffmap at 2048 and 1024 px both ways, through K5 and through the
+   prologue, K4 and the eager epilogue;
 7. the single-pair API and the codec-iter loop: the four ``calculate_*``
    and Butteraugli at 250 nits with no ``device`` on three 512 px
    candidates (K7 and K8 launch, K2-K4 once per pass at B = 1, K5 and K6
@@ -139,8 +142,16 @@ MASK_EPILOGUE_OPS = 3
 # blurs both ways.
 K9_OPS = 2 + 6 * (15 + 14)
 # The CUDA kernel behind each wrapper whose rows also carry the kernel's own
-# device time (the profiler's), beside the CUDA-events time of the wrapper.
-OWN_TIME = {"malta_ac": "malta_kernel", "malta_diffmap": "malta_diffmap_kernel"}
+# device time (the profiler's, summed over the launches of one call), beside
+# the CUDA-events time of the wrapper.
+OWN_TIME = {
+    "scale_features": "scale_features_kernel", "bands": "bands_kernel",
+    "malta_ac": "malta_kernel", "malta_diffmap": "malta_diffmap_kernel",
+    "scale_features_pair": "scale_features_kernel",
+}
+# The kernels whose compiler report (registers, shared memory, spills)
+# phase 1 prints.
+PTXAS_KERNELS = ("scale_features_kernel", "bands_kernel", "malta")
 
 # ---------------------------------------------------------------- the codec
 
@@ -335,16 +346,20 @@ def device_us(e) -> float:
 
 
 def own_device_ms(fn, kernel: str, calls: int = 10) -> Optional[float]:
-    """Mean device time of one launch of the CUDA kernel named ``kernel``,
-    over ``calls`` calls of ``fn`` (each launching it once), from
-    ``torch.profiler``: the kernel alone, without the host time between
-    launches that CUDA events over a loop also count.  The mean is over the
-    launches the profiler recorded, which after a long profile of many
-    operations may be fewer than ``calls``.  None if it recorded none."""
+    """Device time of the CUDA kernels named ``kernel`` per call of ``fn``,
+    from ``torch.profiler``: the kernel alone, without the host time between
+    launches that CUDA events over a loop also count.  The wrappers' launch
+    counters give the launches of one call (six for K1's six scales); the
+    mean over the launches the profiler recorded in ``calls`` calls, which
+    after a long profile of many operations may be fewer than it should,
+    times that count.  None if it recorded none."""
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
     from torch.profiler import ProfilerActivity
 
+    before = sum(w.launches for w in WRAPPERS.values())
     fn()
     torch.cuda.synchronize()
+    per_call = sum(w.launches for w in WRAPPERS.values()) - before
     with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -352,9 +367,11 @@ def own_device_ms(fn, kernel: str, calls: int = 10) -> Optional[float]:
     seen = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
     launches = sum(e.count for e in seen)
-    if launches != calls:
-        print(f"  (the profiler recorded {launches} of {calls} launches of {kernel})")
-    return sum(device_us(e) for e in seen) / 1e3 / launches if launches else None
+    if launches != calls * per_call:
+        print(f"  (the profiler recorded {launches} of {calls} x {per_call} launches of {kernel})")
+    if not launches:
+        return None
+    return sum(device_us(e) for e in seen) / 1e3 / launches * per_call
 
 
 def reset_launches() -> None:
@@ -468,14 +485,12 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
         xyb2.append(s2._to_positive_xyb(level).contiguous())
     args = [(pre.xyb[s], pre.mu[s], pre.sqblur[s], xyb2[s]) for s in range(s2.NUM_SCALES)]
     worst, moved, ops = 0.0, 0, 0
-    tw, th = scale_features.TILE
     for a in args:
         got = scale_features.scale_features_batch(*a)
         want = scale_features.scale_features_plain(*a)
-        n, _, sh, sw = a[3].shape
+        sw = a[3].shape[-1]
         worst = max(worst, compare(f"K1 scale_features {sw}px", got, want, **K1_TOL))
-        partials = n * 3 * -(-sh // th) * -(-sw // tw) * 6 * 4
-        moved += nbytes(*a) + partials
+        moved += nbytes(*a, got)  # the inputs once and the (N, 3, 2, 3) features
         ops += K1_OPS * a[3].numel()
     out["scale_features"] = Check(
         worst,
@@ -528,6 +543,45 @@ def check_odd_shapes(device: torch.device) -> None:
             d = planes(2, 10.0)
             compare(f"K6 {b}x{h}x{w} sigma {sigma:g}", blur.blur_batch(d, sigma),
                     blur.blur_batch_plain(d, sigma), **KERNEL_TOL)
+    torch.cuda.synchronize()
+
+
+def check_ragged_strips(device: torch.device) -> None:
+    """K3, K1 and K8, the row-streamed strip kernels, where the last strip
+    of columns and the last segment of rows are both ragged (heights of
+    several segments and a remainder, widths not a multiple of the strip),
+    and K1 and K8 at the smallest pyramid scales.  K3 bit for bit; K1 and
+    K8 within K1_TOL, and each pair's K8 features equal to those of the same
+    candidate in K1's batch."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.blur import blur_separable
+    from codec_eval_tpu_torch.kernels.cuda import _lib, freqsep, scale_features as sf
+
+    rng = np.random.default_rng(SEED + 1)
+    for b, h, w in ((1, 101, 300), (2, 261, 131)):
+        seg = freqsep.bands_segment_rows(b, h, w, _lib.sm_count(device))
+        if h % seg == 0 or w % _lib.STRIP == 0:
+            raise AssertionError(f"K3 {b}x{h}x{w}: segment {seg} leaves nothing ragged")
+        scaled = torch.from_numpy(rng.random((b, 3, h, w), np.float32) * 80.0).to(device)
+        xyb = freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS)
+        lf = ba._blur(xyb, ba.SIGMA_LF).contiguous()
+        compare(f"K3 {b}x{h}x{w} (segments of {seg} rows)",
+                freqsep.bands_batch(xyb, lf, ba._BAND_CONSTS),
+                freqsep.bands_plain(xyb, lf, ba._BAND_CONSTS), **EXACT)
+    for n, h, w in ((3, 101, 300), (2, 261, 131), (10, 16, 16), (10, 8, 8)):
+        seg = sf.segment_rows(h)
+        xyb1 = torch.from_numpy(rng.random((3, h, w), np.float32)).to(device)
+        mu1 = blur_separable(xyb1, sf.SIGMA).contiguous()
+        s11 = blur_separable(xyb1 * xyb1, sf.SIGMA).contiguous()
+        noise = torch.from_numpy(rng.random((n, 3, h, w), np.float32)).to(device)
+        xyb2 = (xyb1 + 0.05 * (noise - 0.5)).contiguous()
+        got = sf.scale_features_batch(xyb1, mu1, s11, xyb2)
+        compare(f"K1 {n}x{h}x{w} (segments of {seg} rows)", got,
+                sf.scale_features_plain(xyb1, mu1, s11, xyb2), **K1_TOL)
+        pair = sf.scale_features(xyb1, mu1, s11, xyb2[0].contiguous())
+        compare(f"K8 {h}x{w}", pair, sf.scale_features_plain(xyb1, mu1, s11, xyb2[0]),
+                **K1_TOL)
+        compare(f"K8 {h}x{w} against K1's candidate 0", pair, got[0], **EXACT)
     torch.cuda.synchronize()
 
 
@@ -809,13 +863,13 @@ def pair_checks(k7: list, k8: list, label: str) -> dict:
             maskac.mask_diff_ac_plain(d1, b0, mul, sigma), **EXACT))
     d1, b0 = k7[0]
     k8_err, moved, ops = 0.0, 0, 0
-    tw, th = scale_features.TILE
     for a in k8:
-        _, sh, sw = a[3].shape
+        sw = a[3].shape[-1]
+        got = scale_features.scale_features(*a)
         k8_err = max(k8_err, compare(
-            f"K8 scale_features {label} {sw}px", scale_features.scale_features(*a),
+            f"K8 scale_features {label} {sw}px", got,
             scale_features.scale_features_plain(*a), **K1_TOL))
-        moved += nbytes(*a) + 3 * -(-sh // th) * -(-sw // tw) * 6 * 4
+        moved += nbytes(*a, got)
         ops += K1_OPS * a[3].numel()
     torch.cuda.synchronize()
     return {
@@ -854,10 +908,9 @@ def pair_grid_times(k7: list, k8: list, label: str) -> None:
         show("K7", f"{w} px", -(-w // 64) * -(-h // 32),
              lambda: maskac.mask_diff_ac_batch(d1, b0, ba._MASK_DIFF_AC_MUL, ba.SIGMA_MASK),
              "mask_diff_ac_kernel")
-    tw, th = scale_features.TILE
     for a in k8:
         _, h, w = a[3].shape
-        show("K8", f"{w} px", 3 * -(-w // tw) * -(-h // th),
+        show("K8", f"{w} px", 3 * scale_features.grid_blocks(h, w),
              lambda: scale_features.scale_features(*a), "scale_features_kernel")
 
 
@@ -1402,12 +1455,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _lib.load()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in _lib.ptxas_report("malta"):
-        entry = re.search(r"entry function '\w*?\d(malta_\w*?kernel)(?:ILi(\d+)E)?", line)
-        if entry:
-            print(f"  ptxas -v, {entry.group(1)}<{entry.group(2)}>:")
-        elif "Compile time" not in line and "Function properties" not in line:
-            print(f"    {line}")
+    for kernel in PTXAS_KERNELS:
+        for line in _lib.ptxas_report(kernel):
+            entry = re.search(r"entry function '\w*?\d((?:malta_\w*?|bands_|scale_features_)"
+                              r"kernel)(?:ILi(\d+)E)?", line)
+            if entry:
+                arg = f"<{entry.group(2)}>" if entry.group(2) else ""
+                print(f"  ptxas -v, {entry.group(1)}{arg}:")
+            elif "Compile time" not in line and "Function properties" not in line:
+                print(f"    {line}")
 
     def done(phase, t0: float) -> None:
         print(f"  phase {phase}: {time.perf_counter() - t0:.2f} s")
@@ -1417,6 +1473,7 @@ def main() -> int:
     print(f"[2] kernels vs plain on the card ({len(QUALITIES)} x 3 x {SIZE} x {SIZE})")
     checks = phase_kernels(ref_u8, candidates(ref_u8, QUALITIES), device)
     check_odd_shapes(device)
+    check_ragged_strips(device)
     done(2, t0)
 
     t0 = time.perf_counter()
@@ -1491,10 +1548,11 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": fn.source, "replaces": fn.replaces,
             "launches": launches_pair[name], "max_abs_err": max(small.err, big.err),
-            **time_check(name, small), "shapes": small.shapes,
+            **time_check(name, small, OWN_TIME.get(name)), "shapes": small.shapes,
             "launches_512": launches_pair[name], "launches_2048": launches_pair_big[name],
             "max_abs_err_512": small.err, "max_abs_err_2048": big.err,
-            "at_2048": time_check(f"{name} on the {BIG} px single pair", big),
+            "at_2048": time_check(f"{name} on the {BIG} px single pair", big,
+                                  OWN_TIME.get(name)),
         })
     done(7, t0)
 

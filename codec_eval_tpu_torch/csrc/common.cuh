@@ -40,4 +40,30 @@ __device__ inline float block_sum(float v, float* scratch) {
   return s;
 }
 
+// Row-streamed column strips (K1, K3): a block owns kStrip output columns
+// of one plane and a segment of rows, and walks down the segment a group of
+// rows at a time.  kStripThreads threads: one per column of the strip grown
+// by the stencil's halo in the vertical passes.  The wrappers choose the
+// segment length (kernels/cuda/_lib.py STRIP, segment_rows).
+constexpr int kStrip = 128;
+constexpr int kStripThreads = 160;
+
+// Start a 4-byte asynchronous copy of *src into shared *dst, or zero-fill
+// *dst where !in.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(to), "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 }  // namespace ce

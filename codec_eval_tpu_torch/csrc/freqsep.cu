@@ -12,24 +12,50 @@
 // (15 taps) of mf = XYB - LF, then a renormalized sigma-1.56 blur (7 taps)
 // of the red-green-suppressed residual, then the range reshaping.
 //
-// What bounds them on an H100: memory traffic and latency.  Both are
-// stencils with a few dozen flops per tap and pixel, well under the card's
-// flop/byte balance; K3 chains two blurs, so its input halo compounds to
-// 7 + 3 = 10 pixels.
+// What bounds them on an H100: memory traffic.  Both are stencils with a
+// few dozen flops per tap and pixel, under the card's flop/byte balance.
+// K2 keeps the simple design: one 32x16 output tile per block, its input
+// tile and 2-pixel halo staged once in shared memory, the vertical pass
+// kept in shared memory and the horizontal pass done per output pixel.
 //
-// The simple design: one 32x16 output tile per block, its input tile and
-// halo staged once in shared memory, the vertical pass of each blur kept in
-// shared memory and the horizontal pass done per output pixel.  K3's first
-// blur is evaluated on the output tile grown by the second blur's radius,
-// so the residual never goes to device memory; its 52 KB of shared memory
-// is above the 48 KB static limit and is taken as dynamic shared memory.
+// K3 chains two blurs, so its input halo compounds to 7 + 3 = 10 pixels.
+// Tiled in 32x16 blocks, that staged 3.7x the output area and cost about
+// 230 shared-memory accesses per output pixel.  The design (row-streamed
+// column strips):
+// - A block owns a strip of 128 output columns and a segment of rows of one
+//   image, and walks down the segment in groups of RG3 = 4 rows.  Input is
+//   read at 148/128 across and (segment + 20)/segment down.
+// - Stage A: the sigma-3.22 vertical pass in registers.  Each thread owns
+//   one column of the grown strip and keeps mf = XYB - LF of its last 15
+//   rows for the three channels: 15 fmaf per row and channel, no shared
+//   memory.  It writes the group's vertical sums and centre mf values to
+//   shared memory.
+// - Stage B: each thread owns one column of the extent the second blur
+//   needs (134) and takes the group's rows in order: the sigma-3.22
+//   horizontal pass, the residual, the suppression and the MF bands
+//   (written at once), and the sigma-1.56 vertical pass of the two HF
+//   planes in a 7-row register window.  The residual, suppression and Y
+//   residual, which output row y1 - 3 needs, go to a ring of rows in
+//   shared memory.
+// - Stage D: each thread owns one output column: the sigma-1.56
+//   horizontal pass and the other four bands.
+// - Staging overlaps the work: each thread copies its column's XYB and LF
+//   a group of rows ahead with cp.async into a ring of rows, zero-filled
+//   outside the image, with one wait per group; the reciprocal planes'
+//   values for the next group are loaded into registers during stage D.
+//   Two block barriers per group.
+// - Blocks run image-fastest, so the images of one (segment, strip) share
+//   the reciprocal planes in L2.
+// What binds it now is instruction issue and latency, not device memory:
+// ~350 instructions per output pixel on 15 warps per SM (3 blocks of 160
+// threads, limited by registers).
 // The renormalization reciprocals arrive as precomputed (H, W) planes, the
 // same f32 values the Pallas kernels used.  The library is built with
 // -fmad=false, and an explicit fmaf stands exactly where XLA contracts a
 // multiply-add in the JAX package (tap chains, the absorbance mix, the
-// gamma polynomial, the residuals, the maximum clamp), so the outputs match
-// the plain PyTorch version, and the Pallas kernel as JAX runs it on the
-// CPU, bit for bit.
+// gamma polynomial, the residuals, the maximum clamp), and every tap chain
+// keeps its order, so the outputs match the plain PyTorch version, and the
+// Pallas kernel as JAX runs it on the CPU, bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -125,14 +151,29 @@ constexpr int R2 = 3;  // sigma-1.56 blur radius
 constexpr int K1 = 2 * R1 + 1;
 constexpr int K2 = 2 * R2 + 1;
 constexpr int HALO = R1 + R2;
-constexpr int IW = TW + 2 * HALO, IH = TH + 2 * HALO;  // input tile
-constexpr int MW = TW + 2 * R2, MH = TH + 2 * R2;      // first blur's extent
-// Shared-memory layout, in floats.
-constexpr int S_IN = 3 * IH * IW;     // mf = xyb - lf, zero outside the image
-constexpr int S_V1 = 3 * MH * IW;     // first blur, vertical pass (reused by the second)
-constexpr int S_HF = 2 * MH * MW;     // suppressed residual, X and Y
-constexpr int S_CTR = 5 * TH * TW;    // at the output pixels: MF blurs X/Y/B, residual X, suppression
-constexpr size_t kBandsSmem = sizeof(float) * (S_IN + S_V1 + S_HF + S_CTR);
+// Columns of a strip, relative to its first output column x0:
+// - grown: g in [0, G3) is column x0 - HALO + g, the sigma-3.22 vertical
+//   pass (thread g);
+// - extent: e in [0, E3) is column x0 - R2 + e = grown column e + R1, the
+//   sigma-3.22 horizontal pass and the sigma-1.56 vertical pass (thread e);
+// - output o in [0, kStrip) is column x0 + o = extent column o + R2 (thread o).
+constexpr int G3 = ce::kStrip + 2 * HALO;
+constexpr int E3 = ce::kStrip + 2 * R2;
+// Rows per group: stage A runs a group's rows into shared memory, then
+// stages B and D take them, with two block barriers per group.
+constexpr int RG3 = 4;
+// XYB and LF of each input row, copied by each thread for its own grown
+// column (no other thread reads them) into a ring of rows, a group at a
+// time and a group ahead; one wait per group lets the compiler interleave
+// the group's rows.
+constexpr int NSLOT3 = 2 * RG3;
+constexpr int DIST3 = NSLOT3 - RG3;  // rows copied ahead
+// Stage B's residual, suppression and HF Y of each row y1, which stage D
+// takes R2 rows later at y2 = y1 - R2: a ring of rows in shared memory.
+// Stage B of one group starts after stage D of the previous one ends, so a
+// ring of RG3 + R2 rows is enough.
+constexpr int ND3 = RG3 + R2;
+static_assert(G3 <= ce::kStripThreads, "one thread per grown column");
 
 __device__ __forceinline__ float remove_range(float v, float w) {
   return v > w ? v - w : (v < -w ? v + w : 0.f);
@@ -144,21 +185,42 @@ __device__ __forceinline__ float maximum_clamp(float v, float m, float mul) {
   return v >= m ? fmaf(v - m, mul, m) : (v < -m ? fmaf(v + m, mul, -m) : v);
 }
 
+// The tap chain of the plain version: fma(t0, x0, t1*x1), then fma(ti, xi,
+// acc) in tap order.
+template <int N>
+__device__ __forceinline__ float chain(const float* t, const float* x) {
+  float acc = fmaf(t[0], x[0], t[1] * x[1]);
+#pragma unroll
+  for (int i = 2; i < N; ++i) acc = fmaf(t[i], x[i], acc);
+  return acc;
+}
+
+struct BandsSmem {
+  float slot[NSLOT3][6][G3];  // XYB, LF of the input rows; zeros outside the image
+  float v1[RG3][5][G3];       // sigma-3.22 vertical sums X/Y/B, then mf X/Y, at row y1
+  float v2[RG3][2][E3];       // sigma-1.56 vertical sums of the HF planes at row y2
+  float d[ND3][3][E3];        // residual X, suppression, HF Y at row y1
+};
+
 // consts: mf_x_remove, mf_y_amplify, uhf_x_remove, hf_x_remove, suppress_yw,
 // suppress_s, maxclamp_hf, maxclamp_uhf, maxclamp_mul, uhf_y_mul, hf_y_mul,
 // hf_y_amplify, (1 - suppress_s) * suppress_yw.
-__global__ void __launch_bounds__(ce::kThreads)
+//
+// Block: one (segment, strip, image), image fastest, so that the images of
+// a (segment, strip) run together and share the reciprocal planes in L2.
+// Step s reads input row r = y0 - HALO + s; its sigma-3.22 row is
+// y1 = r - R1 and its output row y2 = r - HALO.  Stage A (a grown column
+// per thread) completes the sigma-3.22 vertical sums of row y1; stage B (an
+// extent column per thread, rows in order) its residual, MF bands and HF
+// planes, and the sigma-1.56 vertical sums of row y2; stage D (an output
+// column per thread) the other bands of row y2.
+__global__ void __launch_bounds__(ce::kStripThreads, 3)
 bands_kernel(const float* __restrict__ xyb, const float* __restrict__ lf,
              const float* __restrict__ recip1, const float* __restrict__ recip2,
-             float* __restrict__ out, int h, int w, ce::Floats<13> k,
+             float* __restrict__ out, int b, int h, int w, int seg, ce::Floats<13> k,
              ce::Floats<K1> t1, ce::Floats<K2> t2) {
-  extern __shared__ float smem[];
-  float (*in)[IH][IW] = reinterpret_cast<float (*)[IH][IW]>(smem);
-  float (*v1)[MH][IW] = reinterpret_cast<float (*)[MH][IW]>(smem + S_IN);
-  float (*hf)[MH][MW] = reinterpret_cast<float (*)[MH][MW]>(smem + S_IN + S_V1);
-  float (*ctr)[TH][TW] = reinterpret_cast<float (*)[TH][TW]>(smem + S_IN + S_V1 + S_HF);
-  float (*v2)[TH][MW] = reinterpret_cast<float (*)[TH][MW]>(smem + S_IN);  // after v1 is done
-
+  extern __shared__ __align__(16) float bands_smem[];
+  BandsSmem& sm = *reinterpret_cast<BandsSmem*>(bands_smem);
   const float mf_x_remove = k.v[0], mf_y_amplify = k.v[1], uhf_x_remove = k.v[2];
   const float hf_x_remove = k.v[3], suppress_yw = k.v[4], suppress_s = k.v[5];
   const float maxclamp_hf = k.v[6], maxclamp_uhf = k.v[7], maxclamp_mul = k.v[8];
@@ -166,98 +228,153 @@ bands_kernel(const float* __restrict__ xyb, const float* __restrict__ lf,
   const float suppress_num = k.v[12];
 
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int img = blockIdx.x % b;
+  const int tile = blockIdx.x / b;
+  const int strips = (w + ce::kStrip - 1) / ce::kStrip;
+  const int x0 = tile % strips * ce::kStrip, y0 = tile / strips * seg;
+  const int y_end = min(y0 + seg, h), x_end = min(x0 + ce::kStrip, w);
   const size_t plane = (size_t)h * w;
-  const size_t base = (size_t)blockIdx.z * 3 * plane;
+  const float* src_xyb = xyb + (size_t)img * 3 * plane;
+  const float* src_lf = lf + (size_t)img * 3 * plane;
+  float* dst = out + (size_t)img * 7 * plane;
 
-  for (int i = tid; i < S_IN; i += ce::kThreads) {
-    const int c = i / (IH * IW), r = i % (IH * IW);
-    const int sy = r / IW, sx = r % IW;
-    const int gy = y0 + sy - HALO, gx = x0 + sx - HALO;
-    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const size_t gi = base + c * plane + (size_t)gy * w + gx;
-    in[c][sy][sx] = inside ? xyb[gi] - lf[gi] : 0.f;
-  }
-  __syncthreads();
-
-  // First blur, vertical pass, on rows of the grown extent.
-  for (int i = tid; i < S_V1; i += ce::kThreads) {
-    const int c = i / (MH * IW), r = i % (MH * IW);
-    const int my = r / IW, sx = r % IW;
-    float acc = fmaf(t1.v[0], in[c][my][sx], t1.v[1] * in[c][my + 1][sx]);
+  // Stage A's column, and its copies of input row s into its slot.
+  const int gx_a = x0 - HALO + tid;
+  const bool col_in = tid < G3 && gx_a >= 0 && gx_a < w;
+  auto issue = [&](int s) {
+    if (tid < G3) {
+      const int r = y0 - HALO + s;
+      const bool in = col_in && r >= 0 && r < h;
+      const size_t gi = in ? (size_t)r * w + gx_a : 0;
+      float (*sl)[G3] = sm.slot[s % NSLOT3];
 #pragma unroll
-    for (int t = 2; t < K1; ++t) acc = fmaf(t1.v[t], in[c][my + t][sx], acc);
-    v1[c][my][sx] = acc;
-  }
-  __syncthreads();
-
-  // First blur, horizontal pass: the suppressed residual on the grown
-  // extent, and the MF bands at the output pixels.
-  for (int i = tid; i < MH * MW; i += ce::kThreads) {
-    const int my = i / MW, mx = i % MW;
-    const int gy = y0 + my - R2, gx = x0 + mx - R2;
-    const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const float rn = inside ? recip1[(size_t)gy * w + gx] : 0.f;
-    const bool center = my >= R2 && my < R2 + TH && mx >= R2 && mx < R2 + TW;
-    float fir[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if (c == 2 && !center) break;
-      float acc = fmaf(t1.v[0], v1[c][my][mx], t1.v[1] * v1[c][my][mx + 1]);
-#pragma unroll
-      for (int t = 2; t < K1; ++t) acc = fmaf(t1.v[t], v1[c][my][mx + t], acc);
-      fir[c] = acc;
+      for (int c = 0; c < 3; ++c) {
+        ce::cp_async4(&sl[c][tid], src_xyb + c * plane + gi, in);
+        ce::cp_async4(&sl[3 + c][tid], src_lf + c * plane + gi, in);
+      }
     }
-    const float h0 = fmaf(-fir[0], rn, in[0][my + R1][mx + R1]);
-    const float h1 = fmaf(-fir[1], rn, in[1][my + R1][mx + R1]);
-    const float suppress = suppress_s + suppress_num / fmaf(h1, h1, suppress_yw);
-    hf[0][my][mx] = h0 * suppress;
-    hf[1][my][mx] = h1;
-    if (center) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) ctr[c][my - R2][mx - R2] = fir[c] * rn;
-      ctr[3][my - R2][mx - R2] = h0;
-      ctr[4][my - R2][mx - R2] = suppress;
-    }
-  }
-  __syncthreads();
+    ce::cp_async_commit();
+  };
 
-  // Second blur, vertical pass (reuses the first blur's buffer).
-  for (int i = tid; i < 2 * TH * MW; i += ce::kThreads) {
-    const int c = i / (TH * MW), r = i % (TH * MW);
-    const int ty = r / MW, mx = r % MW;
-    float acc = fmaf(t2.v[0], hf[c][ty][mx], t2.v[1] * hf[c][ty + 1][mx]);
+  float ring[3][K1];  // stage A: mf = xyb - lf of rows r - 14 .. r
+  float win[2][K2];   // stage B: HF X/Y of rows y1 - 6 .. y1
 #pragma unroll
-    for (int t = 2; t < K2; ++t) acc = fmaf(t2.v[t], hf[c][ty + t][mx], acc);
-    v2[c][ty][mx] = acc;
-  }
-  __syncthreads();
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < K1; ++i) ring[c][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < K2; ++i) win[0][i] = win[1][i] = 0.f;
 
-  float* dst = out + (size_t)blockIdx.z * 7 * plane;
-  for (int i = tid; i < TH * TW; i += ce::kThreads) {
-    const int ty = i / TW, tx = i % TW;
-    const int gy = y0 + ty, gx = x0 + tx;
-    if (gy >= h || gx >= w) continue;
-    const size_t gi = (size_t)gy * w + gx;
-    const float rn = recip2[gi];
-    float hb[2];
+  // The reciprocals that stages B and D of the group at step s0 take,
+  // loaded a group ahead so that their latency hides under stage A: zero
+  // outside the image, as the first blur's renormalization needs.
+  const int gx_b = x0 - R2 + tid, gx_d = x0 + tid;
+  float rn1[RG3], rn2[RG3];
+  auto load_recips = [&](int s0) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      float acc = fmaf(t2.v[0], v2[c][ty][tx], t2.v[1] * v2[c][ty][tx + 1]);
-#pragma unroll
-      for (int t = 2; t < K2; ++t) acc = fmaf(t2.v[t], v2[c][ty][tx + t], acc);
-      hb[c] = acc * rn;
+    for (int i = 0; i < RG3; ++i) {
+      const int y1 = y0 - HALO + s0 + i - R1, y2 = y1 - R2;
+      const bool in1 = tid < E3 && y1 >= 0 && y1 < h && gx_b >= 0 && gx_b < w;
+      const bool in2 = tid < ce::kStrip && y2 >= y0 && y2 < y_end && gx_d < x_end;
+      rn1[i] = in1 ? recip1[(size_t)y1 * w + gx_b] : 0.f;
+      rn2[i] = in2 ? recip2[(size_t)y2 * w + gx_d] : 0.f;
     }
-    const float hc1 = hf[1][ty + R2][tx + R2];
-    const float hfc = maximum_clamp(hb[1], maxclamp_hf, maxclamp_mul);
-    dst[gi] = remove_range(fmaf(ctr[3][ty][tx], ctr[4][ty][tx], -hb[0]), uhf_x_remove);
-    dst[plane + gi] = maximum_clamp(hc1 - hfc, maxclamp_uhf, maxclamp_mul) * uhf_y_mul;
-    dst[2 * plane + gi] = remove_range(hb[0], hf_x_remove);
-    dst[3 * plane + gi] = amplify_range(hfc * hf_y_mul, hf_y_amplify);
-    dst[4 * plane + gi] = remove_range(ctr[0][ty][tx], mf_x_remove);
-    dst[5 * plane + gi] = amplify_range(ctr[1][ty][tx], mf_y_amplify);
-    dst[6 * plane + gi] = ctr[2][ty][tx];
+  };
+
+  const int steps = seg + 2 * HALO;
+  const int groups = (steps + RG3 - 1) / RG3;
+#pragma unroll
+  for (int s = 0; s < DIST3; ++s) issue(s);
+  load_recips(0);
+
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    const int s0 = grp * RG3;
+
+    // Stage A: the sigma-3.22 vertical pass of one grown column, RG3 rows.
+#pragma unroll
+    for (int i = 0; i < RG3; ++i) issue(s0 + i + DIST3);
+    ce::cp_async_wait<DIST3>();  // this group's rows are in
+#pragma unroll
+    for (int i = 0; i < RG3; ++i) {
+      if (tid < G3) {
+        const float (*sl)[G3] = sm.slot[(s0 + i) % NSLOT3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+#pragma unroll
+          for (int j = 0; j < K1 - 1; ++j) ring[c][j] = ring[c][j + 1];
+          ring[c][K1 - 1] = sl[c][tid] - sl[3 + c][tid];
+          sm.v1[i][c][tid] = chain<K1>(t1.v, ring[c]);
+        }
+        sm.v1[i][3][tid] = ring[0][R1];
+        sm.v1[i][4][tid] = ring[1][R1];
+      }
+    }
+    __syncthreads();
+
+    // Stage B: one extent column, the group's rows in order.
+    if (tid < E3) {
+      const int e = tid;
+      const int gx = gx_b;
+#pragma unroll
+      for (int i = 0; i < RG3; ++i) {
+        const int y1 = y0 - HALO + s0 + i - R1;
+        const bool inside = y1 >= 0 && y1 < h && gx >= 0 && gx < w;
+        const float rn = rn1[i];
+        float fir[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) fir[c] = chain<K1>(t1.v, &sm.v1[i][c][e]);
+        const float h0 = fmaf(-fir[0], rn, sm.v1[i][3][e + R1]);
+        const float h1 = fmaf(-fir[1], rn, sm.v1[i][4][e + R1]);
+        const float suppress = suppress_s + suppress_num / fmaf(h1, h1, suppress_yw);
+        // The MF bands at row y1 need nothing of the second blur.
+        if (y1 >= y0 && y1 < y_end && gx >= x0 && gx < x_end) {
+          const size_t gi = (size_t)y1 * w + gx;
+          dst[4 * plane + gi] = remove_range(fir[0] * rn, mf_x_remove);
+          dst[5 * plane + gi] = amplify_range(fir[1] * rn, mf_y_amplify);
+          dst[6 * plane + gi] = fir[2] * rn;
+        }
+        float (*d)[E3] = sm.d[(s0 + i) % ND3];
+        d[0][e] = h0;
+        d[1][e] = suppress;
+        d[2][e] = h1;
+#pragma unroll
+        for (int j = 0; j < K2 - 1; ++j) {
+          win[0][j] = win[0][j + 1];
+          win[1][j] = win[1][j + 1];
+        }
+        // The second blur pads the HF planes with zeros.
+        win[0][K2 - 1] = inside ? h0 * suppress : 0.f;
+        win[1][K2 - 1] = inside ? h1 : 0.f;
+        sm.v2[i][0][e] = chain<K2>(t2.v, win[0]);
+        sm.v2[i][1][e] = chain<K2>(t2.v, win[1]);
+      }
+    }
+    __syncthreads();
+
+    // Stage D: the sigma-1.56 horizontal pass and the other bands of one
+    // output column, at the group's output rows.
+    if (tid < ce::kStrip && gx_d < x_end) {
+#pragma unroll
+      for (int i = 0; i < RG3; ++i) {
+        const int y2 = y0 - HALO + s0 + i - HALO;
+        if (y2 < y0 || y2 >= y_end) continue;
+        const size_t gi = (size_t)y2 * w + gx_d;
+        const float rn = rn2[i];
+        const float hb0 = chain<K2>(t2.v, &sm.v2[i][0][tid]) * rn;
+        const float hb1 = chain<K2>(t2.v, &sm.v2[i][1][tid]) * rn;
+        const float hfc = maximum_clamp(hb1, maxclamp_hf, maxclamp_mul);
+        const int e = tid + R2;
+        const float (*d)[E3] = sm.d[(s0 + i + ND3 - R2) % ND3];  // row y1 - R2 = y2
+        dst[gi] = remove_range(fmaf(d[0][e], d[1][e], -hb0), uhf_x_remove);
+        dst[plane + gi] = maximum_clamp(d[2][e] - hfc, maxclamp_uhf, maxclamp_mul) * uhf_y_mul;
+        dst[2 * plane + gi] = remove_range(hb0, hf_x_remove);
+        dst[3 * plane + gi] = amplify_range(hfc * hf_y_mul, hf_y_amplify);
+      }
+    }
+    load_recips(s0 + RG3);
   }
+  ce::cp_async_wait<0>();
 }
 
 }  // namespace
@@ -273,17 +390,21 @@ extern "C" int ce_opsin_xyb(const float* lin, const float* recip, float* out, in
 }
 
 // xyb, lf: (b, 3, h, w); recip332, recip156: (h, w); out: (b, 7, h, w);
-// consts: 13 host floats; taps332: 15; taps156: 7.
+// seg: rows per segment; consts: 13 host floats; taps332: 15; taps156: 7.
 extern "C" int ce_bands(const float* xyb, const float* lf, const float* recip332,
-                        const float* recip156, float* out, int b, int h, int w,
+                        const float* recip156, float* out, int b, int h, int w, int seg,
                         const float* consts, const float* taps332, const float* taps156,
                         void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bands_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBandsSmem);
+  if (b <= 0 || h <= 0 || w <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)b * ((w + ce::kStrip - 1) / ce::kStrip) *
+                           ((h + seg - 1) / seg);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int smem = sizeof(BandsSmem);  // above the 48 KB of static shared memory
+  cudaError_t err =
+      cudaFuncSetAttribute(bands_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
-  bands_kernel<<<grid, ce::kThreads, kBandsSmem, (cudaStream_t)stream>>>(
-      xyb, lf, recip332, recip156, out, h, w, ce::load_floats<13>(consts),
+  bands_kernel<<<(unsigned)blocks, ce::kStripThreads, smem, (cudaStream_t)stream>>>(
+      xyb, lf, recip332, recip156, out, b, h, w, seg, ce::load_floats<13>(consts),
       ce::load_floats<K1>(taps332), ce::load_floats<K2>(taps156));
   return (int)cudaGetLastError();
 }

@@ -48,12 +48,12 @@ F = ctypes.c_float
 
 #: C entry points: name -> argtypes.  Each returns ``int`` (cudaError_t).
 SIGNATURES = {
-    # x1, mu1, s11, x2, partial, n, h, w, taps, stream
-    "ce_scale_features": (P, P, P, P, P, I, I, I, P, P),
+    # x1, mu1, s11, x2, partial, counter, out, n, h, w, seg, taps, stream
+    "ce_scale_features": (P, P, P, P, P, P, P, I, I, I, I, P, P),
     # lin, recip, out, b, h, w, consts, taps, stream
     "ce_opsin_xyb": (P, P, P, I, I, I, P, P, P),
-    # xyb, lf, recip332, recip156, out, b, h, w, consts, taps332, taps156, stream
-    "ce_bands": (P, P, P, P, P, I, I, I, P, P, P, P),
+    # xyb, lf, recip332, recip156, out, b, h, w, seg, consts, taps332, taps156, stream
+    "ce_bands": (P, P, P, P, P, I, I, I, I, P, P, P, P),
     # diffs, out, b, h, w, stream
     "ce_malta_ac": (P, P, I, I, I, P),
     # cand6, ref6, cand_rest, ref_rest, dac, masks, out, b, h, w, ch, epi, stream
@@ -65,6 +65,18 @@ SIGNATURES = {
     # x1, x2, out, planes, h, w, taps, stream
     "ce_candidate_moments": (P, P, P, I, I, I, P, P),
 }
+
+
+#: Output columns per block of the row-streamed strip kernels, K1 and K3
+#: (``csrc/common.cuh`` ``kStrip``).  Each block also owns a segment of rows,
+#: whose length the kernel's wrapper chooses.
+STRIP = 128
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _nvcc() -> str:

@@ -235,6 +235,26 @@ def _bands_args(consts) -> tuple:
     )
 
 
+#: K3's grid: blocks resident per SM (registers bound them), the waves of
+#: blocks a launch should hold, and the segment lengths, longest first.
+BANDS_BLOCKS_PER_SM = 3
+BANDS_WAVES = 2
+BANDS_SEGMENTS = (256, 128, 64, 32)
+
+
+def bands_segment_rows(b: int, h: int, w: int, sms: int) -> int:
+    """Rows per segment of K3's strips for a (b, h, w) launch on ``sms``
+    SMs: the longest of ``BANDS_SEGMENTS`` whose grid still holds
+    ``BANDS_WAVES`` waves of blocks, else the shortest.  A segment re-reads
+    its 20 halo rows, so longer is cheaper while the card has blocks."""
+    blocks_per_segment = b * -(-w // _lib.STRIP)
+    min_blocks = BANDS_WAVES * BANDS_BLOCKS_PER_SM * sms
+    for rows in BANDS_SEGMENTS:
+        if blocks_per_segment * -(-h // rows) >= min_blocks:
+            return rows
+    return BANDS_SEGMENTS[-1]
+
+
 def bands_batch(xyb: torch.Tensor, lf: torch.Tensor, consts) -> torch.Tensor:
     """K3.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
     if xyb.device.type == "cpu":
@@ -251,10 +271,11 @@ def bands_batch(xyb: torch.Tensor, lf: torch.Tensor, consts) -> torch.Tensor:
     out = torch.empty((b, 7, h, w), dtype=torch.float32, device=dev)
     r332 = recip_norm(h, w, SIGMA_MF, dev)
     r156 = recip_norm(h, w, SIGMA_UHF, dev)
+    seg = bands_segment_rows(b, h, w, _lib.sm_count(dev))
     with torch.cuda.device(dev):
         rc = _lib.load().ce_bands(
             _lib.ptr(xyb), _lib.ptr(lf), _lib.ptr(r332), _lib.ptr(r156), _lib.ptr(out),
-            b, h, w, _lib.ptr(host_consts), _lib.ptr(t332), _lib.ptr(t156),
+            b, h, w, seg, _lib.ptr(host_consts), _lib.ptr(t332), _lib.ptr(t156),
             _lib.stream(dev),
         )
     _lib.check(rc, "ce_bands")

@@ -5,9 +5,10 @@
 (3, H, W) reference planes xyb1, mu1, s11 against (N, 3, H, W) candidates
 xyb2 -> (N, 3, 2, 3) features (channel x norm x {ssim, artifact, detail}).
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/scale_features.cu``), which writes six partial sums per 32x16 tile;
-this wrapper adds them and forms the norms, as the JAX wrapper does.  On a
-CPU tensor it runs ``scale_features_plain``, the port of
+(``csrc/scale_features.cu``), which sums the maps in double, adds each
+plane's block partials in a fixed order and forms the norms itself, so the
+wrapper issues one launch and nothing else.  On a CPU tensor it runs
+``scale_features_plain``, the port of
 ``codec_eval_tpu/kernels/ssimulacra2.py:_scale_features``.
 
 K8, ``scale_features``, is the counterpart of the single-pair
@@ -15,6 +16,8 @@ K8, ``scale_features``, is the counterpart of the single-pair
 kernel differs from the batched one only in how its grid carries the batch
 (ANY-space inputs and VMEM limits), not in what it computes, so K8 launches
 the same CUDA kernel at N = 1, under its own wrapper and launch counter.
+The kernel's partials and their order depend on the plane's size only, so
+a pair's features equal those of the same candidate in a batch.
 """
 
 from __future__ import annotations
@@ -27,16 +30,33 @@ from . import _lib
 
 SIGMA = 1.5
 C2 = 0.0009
-#: Output tile of the kernel (csrc/scale_features.cu TW, TH).
-TILE = (32, 16)
+#: Output columns per block of the kernel (csrc/common.cuh kStrip).
+STRIP = _lib.STRIP
 
 
-def _norms(sums: torch.Tensor, n_pixels: int) -> torch.Tensor:
-    """(..., 6) sums (d, d^4, art, art^4, lost, lost^4) -> (..., 2, 3)."""
-    mean = sums / float(n_pixels)
-    one = mean[..., 0::2]
-    four = torch.sqrt(torch.sqrt(mean[..., 1::2]))
-    return torch.stack([one, four], dim=-2)
+def segment_rows(h: int) -> int:
+    """Rows per segment of the kernel's strips: about an eighth of the
+    plane, 16 to 128 rows.  It depends on the plane's size only, never on
+    the number of candidates, so neither do the partial sums."""
+    return min(128, max(16, -(-h // 8)))
+
+
+def grid_blocks(h: int, w: int) -> int:
+    """Blocks (and partial sums) per (candidate, channel) plane."""
+    return -(-w // STRIP) * -(-h // segment_rows(h))
+
+
+_counters: dict = {}
+
+
+def _counter(device: torch.device, planes: int) -> torch.Tensor:
+    """The device's zeroed block counters, one per plane, at least
+    ``planes`` long.  The kernel leaves every counter at 0 after its launch,
+    so one buffer per device serves every call on the current stream."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < planes:
+        buf = _counters[device] = torch.zeros(planes, dtype=torch.int32, device=device)
+    return buf
 
 
 def scale_features_plain(
@@ -85,16 +105,17 @@ def _launch(xyb1, mu1, s11, xyb2: torch.Tensor) -> torch.Tensor:
     taps = np.ascontiguousarray(gaussian_taps(SIGMA))
     if len(taps) != 15:
         raise ValueError("scale-features kernel takes 15 taps")
-    nblocks = -(-w // TILE[0]) * -(-h // TILE[1])
     dev = xyb2.device
-    partial = torch.empty((n, 3, nblocks, 6), dtype=torch.float32, device=dev)
+    partial = torch.empty((n, 3, grid_blocks(h, w), 6), dtype=torch.float64, device=dev)
+    out = torch.empty((n, 3, 2, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = _lib.load().ce_scale_features(
             _lib.ptr(xyb1), _lib.ptr(mu1), _lib.ptr(s11), _lib.ptr(xyb2),
-            _lib.ptr(partial), n, h, w, _lib.ptr(taps), _lib.stream(dev),
+            _lib.ptr(partial), _lib.ptr(_counter(dev, n * 3)), _lib.ptr(out),
+            n, h, w, segment_rows(h), _lib.ptr(taps), _lib.stream(dev),
         )
     _lib.check(rc, "ce_scale_features")
-    return _norms(partial.sum(dim=2), h * w)
+    return out
 
 
 def scale_features_batch(

@@ -93,10 +93,14 @@ def test_wrapper_is_registered_as_k9():
 
 
 def test_kernel_source_shares_k1s_moment_tile():
-    """K1 and K9 both call the staging and FIR passes of ``moments.cuh``."""
+    """K9 calls the staging and FIR passes of ``moments.cuh``; K1, which
+    streams rows through register windows instead, takes the same sigma-1.5
+    radius and tap count from it."""
     csrc = _lib.CSRC
     for name in ("moments.cu", "scale_features.cu"):
-        text = (csrc / name).read_text()
-        assert '#include "moments.cuh"' in text
-        assert "stage_vertical(" in text and "horizontal(" in text
+        assert '#include "moments.cuh"' in (csrc / name).read_text()
+    k9 = (csrc / "moments.cu").read_text()
+    assert "stage_vertical(" in k9 and "horizontal(" in k9
+    k1 = (csrc / "scale_features.cu").read_text()
+    assert "using ce::moments::K;" in k1 and "using ce::moments::R;" in k1
     assert "ce_candidate_moments" in (csrc / "moments.cu").read_text()
