@@ -2,21 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (``codec_eval_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py              # the smoke run
-    python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8 per launch
+    python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8/K2 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, in parallel) and then runs eight phases,
 each failing loudly:
 
-1. device: the card's name and power limit, the kernels' build time, and
-   the compiler's registers, shared memory and spills of the strip kernels
-   (K1, K3) and the Malta kernels (K4, K5);
+1. device: the card's name and power limit, the kernels' build time, the
+   compiler's registers, shared memory and spills of the strip kernels
+   (K1, K2, K3, K9 and K9's tile walk) and the Malta kernels (K4, K5), and
+   a summary of K2's SASS (its instructions and IEEE division sequence);
 2. K1-K4 against their plain PyTorch versions on the card, on the inputs the
    512 px all-metric sweep gives them (25 candidates and the reference at
    512 and 256 px, K1 at all six SSIMULACRA2 scales), and all six kernels
-   at three ragged shapes (K6 at sigma 2.7 and 7.16), and K1, K3 and K8
-   where the last strip and the last segment of rows are both ragged and
-   at the smallest pyramid scales (K3 bit for bit, K8 equal to K1's
+   at three ragged shapes (K6 at sigma 2.7 and 7.16), and K1, K2, K3 and
+   K8 where the last strip and the last segment of rows are both ragged and
+   at the smallest pyramid scales (K2 and K3 bit for bit, K8 equal to K1's
    candidate in a batch);
 3. the 512 px slice: an ``EvalSession(MetricConfig.all(), device="cuda")``
    sweep of a 512x512 image through a host block-DCT codec at 25 quality
@@ -32,8 +33,8 @@ each failing loudly:
    kernel against its plain version on that sweep's inputs (K1 at 2048 down
    to 64 px; K2, K3 and K6 at 2048 and 1024; K4 at 1024; K5 at 2048);
 6. each kernel's time against its plain version's and its bound, on both
-   paths for K1-K4, with the kernel-alone device time of K1, K3, K4 and K5
-   (K8 in phase 7); for K6 the dense operator product it replaces; and the
+   paths for K1-K4, with the kernel-alone device time of K1-K5 (K8 in
+   phase 7); for K6 the dense operator product it replaces; and the
    whole diffmap at 2048 and 1024 px both ways, through K5 and through the
    prologue, K4 and the eager epilogue;
 7. the single-pair API and the codec-iter loop: the four ``calculate_*``
@@ -42,26 +43,31 @@ each failing loudly:
    never), rescored on the host, and identical pairs; the same calls on two
    2048 px candidates (K5 launches, and K4 on the 1024 px pass) held to
    phase 5's batch scores on the card; K7 and K8 against their plain
-   versions on those pairs' inputs and K7 at two ragged shapes;
+   versions on those pairs' inputs (K2 too, bit for bit, at B = 1) and K7
+   at two ragged shapes;
    ``run_eval`` over two 512 px images held to an ``EvalSession``'s
    SSIMULACRA2 column; each ``calculate_*`` timed per call; K7 and K8
    timed against their plain versions and their bounds;
 8. the mixed-size corpus: 20 pairs of crops of the 2048 px image (4 x 512,
    2 x 800, 1 x 2048, 2048 x 1365 landscape and portrait, 333 x 517) at q50
    and q90 scored by ``parallel.score_pairs_sharded(masked=True)`` in six
-   padded buckets with no ``device`` (K9 12 times and K4 twice per bucket,
-   nothing else), held to the exact-shape path on the card and, for the
-   333 x 517 bucket, to the host; where the card's time goes in one masked
-   call (profiler); K9 against its plain version bit for bit at every
+   padded buckets with no ``device`` (per bucket K9 six times in each form,
+   candidate and reference, and K4 twice, nothing else), held to the
+   exact-shape path on the card and, for the 333 x 517 bucket, to the host;
+   where the card's time goes in one masked call (profiler, K9's forms
+   apart); both forms of K9 against their plain versions bit for bit,
+   through the wrapper and through each walk (strip and tile), at every
    scale of the 512, 2048 x 2048 and 2048 x 1408 buckets and at two ragged
-   shapes; K9 timed against its plain version, a grouped
-   ``conv2d`` and its bound; the corpus's wall time, pairs/s and peak
-   device memory.
+   shapes; K9 timed at every scale of the first two in both forms, through
+   the wrapper and alone, beside its bound; K9 timed against its plain
+   version and a grouped ``conv2d``; the corpus's wall time, pairs/s and
+   peak device memory.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
-per size; K7 and K8 launch by launch on one pair at each size (the grid,
-the wrapper's time and the kernel's own device time); and the device's
-busy and idle time during one call of each ``calculate_*`` at each size.
+per size; K7, K8 and K2 launch by launch on one pair at each size (the
+grid, the wrapper's time and the kernel's own device time); and the
+device's busy and idle time during one call of each ``calculate_*`` at
+each size.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``, with the card's ``nvidia-smi`` line just
@@ -106,8 +112,9 @@ PAIR_PICKS = [5, 50, 100]  # single pairs at 512 px, rescored on the host
 PAIR_VS_BATCH_RTOL = 1e-6
 # The kernels that only the single-pair path launches: K7 and K8.
 PAIR_ONLY = frozenset({"mask_diff_ac", "scale_features_pair"})
-# The kernel that only the masked (mixed-size) path launches: K9.
-MASKED_ONLY = frozenset({"candidate_moments"})
+# The kernel that only the masked (mixed-size) path launches: K9, in its
+# candidate and reference forms.
+MASKED_ONLY = frozenset({"candidate_moments", "reference_moments"})
 # The mixed-size corpus: buckets of 128 px, and the masked scores held to
 # the exact path at tests/test_parallel.py's tolerance.
 GRANULARITY = 128
@@ -139,19 +146,25 @@ EPILOGUE_OPS = 2 * 7 + 2 + 2 * 4 + 3 + 1 + 12 + 6 + 1
 # K7, per pixel beyond K6's blur: b0 - b1, the product with ac_mul, the square.
 MASK_EPILOGUE_OPS = 3
 # K9, per channel and pixel: the products x2*x2 and x1*x2, then three 15-tap
-# blurs both ways.
+# blurs both ways; its reference form: x1*x1, then two blurs both ways.
 K9_OPS = 2 + 6 * (15 + 14)
+K9_REF_OPS = 1 + 4 * (15 + 14)
+# The CUDA kernels of K9 (the strip walk and the tile walk of small planes).
+K9_KERNELS = ("candidate_moments_kernel", "moments_tile_kernel")
 # The CUDA kernel behind each wrapper whose rows also carry the kernel's own
 # device time (the profiler's, summed over the launches of one call), beside
 # the CUDA-events time of the wrapper.
 OWN_TIME = {
-    "scale_features": "scale_features_kernel", "bands": "bands_kernel",
-    "malta_ac": "malta_kernel", "malta_diffmap": "malta_diffmap_kernel",
-    "scale_features_pair": "scale_features_kernel",
+    "scale_features": "scale_features_kernel", "opsin_xyb": "opsin_kernel",
+    "bands": "bands_kernel", "malta_ac": "malta_kernel",
+    "malta_diffmap": "malta_diffmap_kernel", "scale_features_pair": "scale_features_kernel",
+    "candidate_moments": K9_KERNELS, "reference_moments": K9_KERNELS,
 }
 # The kernels whose compiler report (registers, shared memory, spills)
-# phase 1 prints.
-PTXAS_KERNELS = ("scale_features_kernel", "bands_kernel", "malta")
+# phase 1 prints, and those whose SASS it summarizes (K2's divisions).
+PTXAS_KERNELS = ("scale_features_kernel", "opsin_kernel", "bands_kernel", "malta",
+                 "candidate_moments_kernel", "moments_tile_kernel")
+SASS_KERNELS = ("opsin_kernel",)
 
 # ---------------------------------------------------------------- the codec
 
@@ -345,30 +358,37 @@ def device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def own_device_ms(fn, kernel: str, calls: int = 10) -> Optional[float]:
-    """Device time of the CUDA kernels named ``kernel`` per call of ``fn``,
-    from ``torch.profiler``: the kernel alone, without the host time between
-    launches that CUDA events over a loop also count.  The wrappers' launch
-    counters give the launches of one call (six for K1's six scales); the
-    mean over the launches the profiler recorded in ``calls`` calls, which
-    after a long profile of many operations may be fewer than it should,
-    times that count.  None if it recorded none."""
+def own_device_ms(fn, kernel, calls: int = 10) -> Optional[float]:
+    """Device time of the CUDA kernels named ``kernel`` (a name, or a tuple
+    of names) per call of ``fn``, from ``torch.profiler``: the kernel alone,
+    without the host time between launches that CUDA events over a loop
+    also count.  The wrappers' launch counters give the launches of one
+    call (six for K1's six scales); the mean over the launches the profiler
+    recorded in ``calls`` calls, which after a long profile of many
+    operations may be fewer than it should, times that count.  None if it
+    recorded none."""
     from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
     from torch.profiler import ProfilerActivity
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     before = sum(w.launches for w in WRAPPERS.values())
     fn()
     torch.cuda.synchronize()
     per_call = sum(w.launches for w in WRAPPERS.values()) - before
-    with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in seen)
+    for _ in range(2):  # once more if the profiler recorded under half of them
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(n in e.key for n in names)]
+        launches = sum(e.count for e in seen)
+        if 2 * launches >= calls * per_call:
+            break
     if launches != calls * per_call:
-        print(f"  (the profiler recorded {launches} of {calls} x {per_call} launches of {kernel})")
+        print(f"  (the profiler recorded {launches} of {calls} x {per_call} launches of "
+              f"{' or '.join(names)})")
     if not launches:
         return None
     return sum(device_us(e) for e in seen) / 1e3 / launches * per_call
@@ -386,6 +406,39 @@ def read_launches() -> dict:
 
     torch.cuda.synchronize()
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def sass_summary(kernel: str) -> None:
+    """The SASS of each compiled function whose name contains ``kernel``
+    (``cuobjdump -sass`` on the built library): its instruction count, the
+    most frequent opcodes, and the neighbourhood of its first IEEE division
+    (a reciprocal estimate, a range check FCHK whose failure branches to the
+    slow path, and the refinement steps)."""
+    from collections import Counter
+
+    from codec_eval_tpu_torch.kernels.cuda import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        print(f"  SASS of {kernel}: cuobjdump not found beside nvcc")
+        return
+    text = subprocess.run([str(tool), "-sass", str(_lib.library_path())], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ops = [m.group(1).strip() for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([^;]+);", body)]
+        count = Counter(o.split()[0] for o in ops)
+        print(f"  SASS of {name}: {len(ops)} instructions; "
+              + ", ".join(f"{k} {v}" for k, v in count.most_common(24)))
+        check = next((i for i, o in enumerate(ops) if o.startswith("FCHK")), None)
+        if check is not None:
+            start = max(i for i in range(check) if ops[i].startswith("MUFU.RCP"))
+            print("    the first division, from its reciprocal estimate to 8 instructions "
+                  "past its range check (other work interleaved): "
+                  + "; ".join(ops[start : check + 9]))
 
 
 # ------------------------------------------------------------------- phases
@@ -443,9 +496,8 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
             k4.append((f"B={b} {rh}x{rw}", (diffs, *lines)))
             del pi1
 
-    # K2: opsin dynamics.
-    err, got = held("K2 opsin_xyb", freqsep.opsin_xyb_batch, freqsep.opsin_xyb_plain, k2,
-                    KERNEL_TOL)
+    # K2: opsin dynamics, bit for bit.
+    err, got = held("K2 opsin_xyb", freqsep.opsin_xyb_batch, freqsep.opsin_xyb_plain, k2, EXACT)
     scaled = k2[0][1][0]
     out["opsin_xyb"] = Check(
         err,
@@ -453,6 +505,7 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
         lambda: freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS),
         2 * nbytes(scaled) + h * w * 4, K2_OPS * b * h * w, f"{w} px, B={b}",
     )
+    del k2
 
     # K3: bands, on the plain XYB and its LF blur.
     err, got = held("K3 bands", freqsep.bands_batch, freqsep.bands_plain, k3, KERNEL_TOL)
@@ -519,7 +572,7 @@ def check_odd_shapes(device: torch.device) -> None:
 
         scaled = planes(3, 80.0)
         compare(f"K2 {b}x{h}x{w}", freqsep.opsin_xyb_batch(scaled, ba._OPSIN_CONSTS),
-                freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS), **KERNEL_TOL)
+                freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS), **EXACT)
         xyb = freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS)
         lf = ba._blur(xyb, ba.SIGMA_LF).contiguous()
         compare(f"K3 {b}x{h}x{w}", freqsep.bands_batch(xyb, lf, ba._BAND_CONSTS),
@@ -547,12 +600,12 @@ def check_odd_shapes(device: torch.device) -> None:
 
 
 def check_ragged_strips(device: torch.device) -> None:
-    """K3, K1 and K8, the row-streamed strip kernels, where the last strip
+    """K2, K3, K1 and K8, row-streamed strip kernels, where the last strip
     of columns and the last segment of rows are both ragged (heights of
     several segments and a remainder, widths not a multiple of the strip),
-    and K1 and K8 at the smallest pyramid scales.  K3 bit for bit; K1 and
-    K8 within K1_TOL, and each pair's K8 features equal to those of the same
-    candidate in K1's batch."""
+    and K1 and K8 at the smallest pyramid scales.  K2 and K3 bit for bit;
+    K1 and K8 within K1_TOL, and each pair's K8 features equal to those of
+    the same candidate in K1's batch."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels.blur import blur_separable
     from codec_eval_tpu_torch.kernels.cuda import _lib, freqsep, scale_features as sf
@@ -563,6 +616,17 @@ def check_ragged_strips(device: torch.device) -> None:
         if h % seg == 0 or w % _lib.STRIP == 0:
             raise AssertionError(f"K3 {b}x{h}x{w}: segment {seg} leaves nothing ragged")
         scaled = torch.from_numpy(rng.random((b, 3, h, w), np.float32) * 80.0).to(device)
+        # K2 through the wrapper (one-row segments at these sizes) and at two
+        # segment lengths that leave the last segment ragged.
+        want = freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS)
+        seg2 = freqsep.opsin_segment_rows(b, h, w, _lib.sm_count(device))
+        compare(f"K2 {b}x{h}x{w} (segments of {seg2} rows)",
+                freqsep.opsin_xyb_batch(scaled, ba._OPSIN_CONSTS), want, **EXACT)
+        for rows in (8, 64):
+            if h % rows == 0:
+                raise AssertionError(f"K2 {b}x{h}x{w}: segment {rows} leaves nothing ragged")
+            compare(f"K2 {b}x{h}x{w} (segments of {rows} rows)",
+                    freqsep._opsin_launch(scaled, ba._OPSIN_CONSTS, rows), want, **EXACT)
         xyb = freqsep.opsin_xyb_plain(scaled, ba._OPSIN_CONSTS)
         lf = ba._blur(xyb, ba.SIGMA_LF).contiguous()
         compare(f"K3 {b}x{h}x{w} (segments of {seg} rows)",
@@ -822,8 +886,9 @@ def rel_diff(got: float, want: float) -> float:
 
 
 def pair_kernel_inputs(ref_u8: np.ndarray, dist_u8: np.ndarray, device) -> tuple:
-    """What K7 and K8 take on the single pair's path: K7's (d1, b0) at full
-    and half resolution, and K8's four planes at every SSIMULACRA2 scale."""
+    """What K7, K8 and K2 take on the single pair's path: K7's (d1, b0) at
+    full and half resolution, K8's four planes at every SSIMULACRA2 scale,
+    and K2's (label, args) for the candidate at B = 1 at both resolutions."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
     from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
@@ -833,8 +898,10 @@ def pair_kernel_inputs(ref_u8: np.ndarray, dist_u8: np.ndarray, device) -> tuple
     lin0, lin1 = ba._planar_linear(ref), ba._planar_linear(dist)[None]
     pre = ba.precompute_butteraugli_reference(lin0)
     it = float(np.float32(pre.params.intensity_target))
-    k7 = []
+    k7, k2 = [], []
     for mask_pre, lin in ((pre.mask_full, lin1), (pre.mask_sub, ba._subsample2x(lin1))):
+        scaled = (lin * it).contiguous()
+        k2.append((f"B=1 {lin.shape[-2]}x{lin.shape[-1]}", (scaled, ba._OPSIN_CONSTS)))
         pi1 = ba._psycho_batch(lin * it)
         d1 = ba._diff_precompute(ba._combine_channels_for_masking(pi1)).contiguous()
         k7.append((d1, mask_pre[0].contiguous()))
@@ -845,14 +912,17 @@ def pair_kernel_inputs(ref_u8: np.ndarray, dist_u8: np.ndarray, device) -> tuple
             linear = s2.downscale_by_2(linear)
         xyb2 = s2._to_positive_xyb(linear).contiguous()
         k8.append((ref_s2.xyb[scale], ref_s2.mu[scale], ref_s2.sqblur[scale], xyb2))
-    return k7, k8
+    return k7, k8, k2
 
 
-def pair_checks(k7: list, k8: list, label: str) -> dict:
+def pair_checks(k7: list, k8: list, k2: list, label: str) -> dict:
     """K7 (exactly) and K8 (within K1_TOL) against their plain versions on a
-    single pair's inputs; the checks phase 7 times, at full resolution."""
+    single pair's inputs; the checks phase 7 times, at full resolution.  K2
+    bit for bit on the pair's candidate at B = 1."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
-    from codec_eval_tpu_torch.kernels.cuda import maskac, scale_features
+    from codec_eval_tpu_torch.kernels.cuda import freqsep, maskac, scale_features
+
+    held(f"K2 opsin_xyb {label}", freqsep.opsin_xyb_batch, freqsep.opsin_xyb_plain, k2, EXACT)
 
     mul, sigma = ba._MASK_DIFF_AC_MUL, ba.SIGMA_MASK
     k7_err = 0.0
@@ -890,12 +960,12 @@ def pair_checks(k7: list, k8: list, label: str) -> dict:
     }
 
 
-def pair_grid_times(k7: list, k8: list, label: str) -> None:
-    """Each K7 and K8 launch of a single pair: its grid, the wrapper's time
-    (CUDA events over 10 calls, host overhead between launches included)
-    and the kernel's own device time (profiler)."""
+def pair_grid_times(k7: list, k8: list, k2: list, label: str) -> None:
+    """Each K7, K8 and K2 launch of a single pair: its grid, the wrapper's
+    time (CUDA events over 10 calls, host overhead between launches
+    included) and the kernel's own device time (profiler)."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
-    from codec_eval_tpu_torch.kernels.cuda import maskac, scale_features
+    from codec_eval_tpu_torch.kernels.cuda import _lib, freqsep, maskac, scale_features
 
     def show(name, shape, blocks, fn, kernel):
         own = own_device_ms(fn, kernel)
@@ -912,6 +982,11 @@ def pair_grid_times(k7: list, k8: list, label: str) -> None:
         _, h, w = a[3].shape
         show("K8", f"{w} px", 3 * scale_features.grid_blocks(h, w),
              lambda: scale_features.scale_features(*a), "scale_features_kernel")
+    for _, args in k2:
+        b, _, h, w = args[0].shape
+        seg = freqsep.opsin_segment_rows(b, h, w, _lib.sm_count(args[0].device))
+        show("K2", f"{w} px (segments of {seg} rows)", b * -(-w // _lib.STRIP) * -(-h // seg),
+             lambda: freqsep.opsin_xyb_batch(*args), "opsin_kernel")
 
 
 def check_k7_ragged(device) -> None:
@@ -1124,29 +1199,74 @@ def k4_inputs(pairs: list, shapes: list, bucket: tuple) -> list:
     return out
 
 
-def k9_check(err: float, x1: torch.Tensor, x2: torch.Tensor, shapes: str) -> Check:
-    """K9 on (x1, x2) for phase 6-style timing: its bound counts two planes
-    read and three written per channel-pixel; the library call is one
-    grouped ``conv2d`` with the 15x15 outer-product kernel on zero padding,
-    over the stacked products made beforehand."""
+def k9_check(err: float, x1: torch.Tensor, x2: Optional[torch.Tensor], shapes: str) -> Check:
+    """K9 on (x1, x2), or its reference form on x1 where ``x2`` is None,
+    for phase 6-style timing: its bound counts two planes read and three
+    written per channel-pixel (the reference form one and two); the library
+    call is one grouped ``conv2d`` with the 15x15 outer-product kernel on
+    zero padding, over the stacked products made beforehand."""
     import torch.nn.functional as F
     from codec_eval_tpu_torch.kernels.blur import gaussian_taps
     from codec_eval_tpu_torch.kernels.cuda import moments
 
+    if x2 is None:
+        stacked = torch.cat([x1, x1 * x1], dim=1)
+        kernel, plain = (lambda: moments.reference_moments(x1),
+                         lambda: moments.reference_moments_plain(x1))
+        moved, ops = 3 * nbytes(x1), K9_REF_OPS * x1.numel()
+    else:
+        stacked = torch.cat([x2, x2 * x2, x1 * x2], dim=1)
+        kernel, plain = (lambda: moments.candidate_moments(x1, x2),
+                         lambda: moments.candidate_moments_plain(x1, x2))
+        moved, ops = 5 * nbytes(x2), K9_OPS * x2.numel()
     taps = torch.from_numpy(gaussian_taps(moments.SIGMA)).to(x1.device)
-    weight = torch.outer(taps, taps).expand(9, 1, len(taps), len(taps)).contiguous()
-    stacked = torch.cat([x2, x2 * x2, x1 * x2], dim=1)
-    conv = F.conv2d(stacked, weight, padding=len(taps) // 2, groups=9)
-    plain = torch.cat(moments.candidate_moments_plain(x1, x2), dim=1)
+    groups = stacked.shape[1]
+    weight = torch.outer(taps, taps).expand(groups, 1, len(taps), len(taps)).contiguous()
+    conv = F.conv2d(stacked, weight, padding=len(taps) // 2, groups=groups)
     print(f"  grouped conv2d against K9's plain version ({shapes}): max |difference| "
-          f"{float((conv - plain).abs().max()):.3e}")
+          f"{float((conv - torch.cat(plain(), dim=1)).abs().max()):.3e}")
     return Check(
-        err,
-        lambda: moments.candidate_moments(x1, x2),
-        lambda: moments.candidate_moments_plain(x1, x2),
-        5 * nbytes(x2), K9_OPS * x2.numel(), shapes,
-        library=lambda: F.conv2d(stacked, weight, padding=len(taps) // 2, groups=9),
+        err, kernel, plain, moved, ops, shapes,
+        library=lambda: F.conv2d(stacked, weight, padding=len(taps) // 2, groups=groups),
     )
+
+
+def k9_form(key: str) -> Optional[str]:
+    """Which form of K9 a profiler event is: its kernels are templates on
+    the form, 1 (candidate) or 2 (reference)."""
+    if not any(k in key for k in K9_KERNELS):
+        return None
+    return "reference" if "<2>" in key or "ILi2E" in key else "candidate"
+
+
+def k9_walks(x1: torch.Tensor) -> list:
+    """K9's two walks at x1's shape: (name, walk, seg) of the strip walk at
+    the segment the wrapper would take and of the tile walk."""
+    from codec_eval_tpu_torch.kernels.cuda import _lib, moments
+
+    h, w = x1.shape[-2:]
+    planes = x1.numel() // (h * w)
+    seg = moments.segment_rows(planes, h, w, _lib.sm_count(x1.device))
+    return [("strip", moments.STRIP_WALK, seg), ("tile", moments.TILE_WALK, 0)]
+
+
+def check_k9(label: str, x1: torch.Tensor, x2: torch.Tensor) -> float:
+    """Both forms of K9, through the wrapper and through each walk, against
+    their plain versions bit for bit; the worst max |err|."""
+    from codec_eval_tpu_torch.kernels.cuda import moments
+
+    err = 0.0
+    for form, inputs, wrapper, plain in (
+        ("candidate", (x1, x2), moments.candidate_moments, moments.candidate_moments_plain),
+        ("reference", (x1,), moments.reference_moments, moments.reference_moments_plain),
+    ):
+        want = torch.stack(plain(*inputs))
+        err = max(err, compare(f"K9 {form} {label}", torch.stack(wrapper(*inputs)), want,
+                               **EXACT))
+        for route, walk, seg in k9_walks(x1):
+            err = max(err, compare(f"K9 {form} {label}, {route} walk",
+                                   moments._launch(form, inputs, walk, seg), want, **EXACT))
+    return err
 
 
 def profile_masked(pairs: list, shapes: list) -> None:
@@ -1166,16 +1286,17 @@ def profile_masked(pairs: list, shapes: list) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     groups = {"GEMM (dense masked blurs)": 0.0, "K4 malta_kernel": 0.0,
-              "K9 candidate_moments_kernel": 0.0, "other": 0.0}
+              "K9 candidate form": 0.0, "K9 reference form": 0.0, "other": 0.0}
     count, rest = 0, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA or e.key.startswith("Activity Buffer"):
             continue
         count += e.count
         key = e.key.lower()
+        form = k9_form(e.key)
         group = ("GEMM (dense masked blurs)" if "gemm" in key else
                  "K4 malta_kernel" if "malta_kernel" in key else
-                 "K9 candidate_moments_kernel" if "candidate_moments_kernel" in key else "other")
+                 f"K9 {form} form" if form else "other")
         groups[group] += device_us(e) / 1e3
         if group == "other":
             rest.append(e)
@@ -1184,6 +1305,8 @@ def profile_masked(pairs: list, shapes: list) -> None:
           f"idle {100 * (1 - busy / wall):.1f} %, {count} device operations")
     for name, ms in groups.items():
         print(f"    {ms:10.3f} ms  {name}")
+    k9_ms = groups["K9 candidate form"] + groups["K9 reference form"]
+    print(f"  K9's device time in the masked call: {k9_ms:.3f} ms")
     print("  the largest of the rest:")
     for e in sorted(rest, key=device_us, reverse=True)[:8]:
         print(f"    {device_us(e) / 1e3:10.3f} ms  {e.count:6d} calls  {e.key[:90]}")
@@ -1200,16 +1323,18 @@ def profile_masked(pairs: list, shapes: list) -> None:
             times.append(time.perf_counter() - t0)
         print(f"  {name} alone, six buckets: median {statistics.median(times[1:]) * 1e3:.1f} ms "
               f"of 3 after a warm-up")
+    return k9_ms
 
 
 def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
     """Phase 8: the mixed-size corpus through the masked corpus runner with
-    no ``device``; returns K9's row of the kernels line and what it adds to
-    K4's row (launches, error and times on the masked path's inputs)."""
+    no ``device``; returns K9's rows of the kernels line (its candidate and
+    reference forms) and what it adds to K4's row (launches, error and
+    times on the masked path's inputs)."""
     from codec_eval_tpu_torch import parallel as par
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels import masked as tm
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, malta, moments
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, malta
 
     metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
     pairs, labels = mixed_corpus(big_u8, big_batch)
@@ -1222,15 +1347,16 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
                              f"{MASKED_BATCH} pairs")
 
     # One masked call, the launch counts read around it: per bucket (one
-    # scoring step each) K9 at six scales on both sides and K4 at full and
-    # half resolution, nothing else.
+    # scoring step each) K9 at six scales in each form (candidate and
+    # reference) and K4 at full and half resolution, nothing else.
     kw = dict(masked=True, granularity=GRANULARITY, batch=MASKED_BATCH)
     reset_launches()
     t0 = time.perf_counter()
     masked = par.score_pairs_sharded(pairs, **kw)
     first = time.perf_counter() - t0
     want = dict.fromkeys(WRAPPERS, 0)
-    want.update(candidate_moments=12 * len(buckets), malta_ac=2 * len(buckets))
+    want.update(candidate_moments=6 * len(buckets), reference_moments=6 * len(buckets),
+                malta_ac=2 * len(buckets))
     launches = read_launches()
     check_launches("of the masked corpus", launches, want)
     print(f"  first masked call: {first:.2f} s")
@@ -1281,27 +1407,25 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
     print(f"  masked corpus of {len(pairs)} pairs: median {med * 1e3:.1f} ms of 3 "
           f"({[round(t * 1e3, 1) for t in times]}), {len(pairs) / med:.2f} pairs/s, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    profile_masked(pairs, shapes)
+    k9_call_ms = profile_masked(pairs, shapes)
 
-    # K9 against its plain version, bit for bit: every scale of the 512,
-    # 2048 and 2048x1408 buckets, both sides, and two ragged shapes.  The
-    # top scales of the first two are timed below.
-    err, tops = 0.0, {}
+    # K9 against its plain versions, bit for bit: both forms, through the
+    # wrapper and through each walk, at every scale of the 512, 2048 and
+    # 2048x1408 buckets and at two ragged shapes.  Every scale of the first
+    # two is timed below.
+    err, timed = 0.0, {}
     for bucket in ((512, 512), (BIG, BIG), (BIG, 1408)):
         scales = k9_inputs(pairs, shapes, bucket)
-        tops[bucket] = scales[0]
         for label, (x1, x2) in scales:
-            for side, a, b in (("candidate", x1, x2), ("reference", x1, x1)):
-                err = max(err, compare(
-                    f"K9 {side} {label}", torch.stack(moments.candidate_moments(a, b)),
-                    torch.stack(moments.candidate_moments_plain(a, b)), **EXACT))
+            err = max(err, check_k9(label, x1, x2))
+        if bucket != (BIG, 1408):
+            timed[bucket] = scales
         del scales
     rng = np.random.default_rng(SEED)
     for shape in ((2, 3, 37, 53), (1, 3, 67, 653)):
         a, b = (torch.from_numpy(rng.random(shape, np.float32)).cuda() for _ in range(2))
-        err = max(err, compare(
-            f"K9 {'x'.join(map(str, shape))}", torch.stack(moments.candidate_moments(a, b)),
-            torch.stack(moments.candidate_moments_plain(a, b)), **EXACT))
+        err = max(err, check_k9("x".join(map(str, shape)), a, b))
+    per_scale = time_k9_scales(timed)
 
     # K4 against its plain version on the masked diff planes of the 512,
     # 2048x1408 and 384x640 buckets at full and half resolution; timed on
@@ -1321,25 +1445,65 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
                     f"masked 2048x1408 bucket, {label}")
             del got
 
-    fn = WRAPPERS["candidate_moments"]
-    top_small, top_big = tops[(512, 512)], tops[(BIG, BIG)]
-    k9_row = {
-        "name": "candidate_moments", "route": "cuda", "source": fn.source,
-        "replaces": fn.replaces, "launches": launches["candidate_moments"], "max_abs_err": err,
-        **time_check("candidate_moments", k9_check(err, *top_small[1], top_small[0])),
-        "shapes": f"512x512 bucket top scale, {top_small[0]}",
-        "launches_per_bucket": launches["candidate_moments"] // len(buckets),
-        "at_2048": time_check("candidate_moments on the 2048x2048 bucket",
-                              k9_check(err, *top_big[1], top_big[0])),
-        "corpus_ms": med * 1e3, "corpus_pairs_per_s": len(pairs) / med,
-    }
+    top_small, top_big = timed[(512, 512)][0], timed[(BIG, BIG)][0]
+    k9_rows = []
+    for name in ("candidate_moments", "reference_moments"):
+        fn, own = WRAPPERS[name], OWN_TIME[name]
+        pick = (lambda x1, x2: (x1, x2)) if name == "candidate_moments" else (
+            lambda x1, x2: (x1, None))
+        k9_rows.append({
+            "name": name, "route": "cuda", "source": fn.source, "replaces": fn.replaces,
+            "launches": launches[name], "max_abs_err": err,
+            **time_check(name, k9_check(err, *pick(*top_small[1]), top_small[0]), own),
+            "shapes": f"512x512 bucket top scale, {top_small[0]}",
+            "launches_per_bucket": launches[name] // len(buckets),
+            "at_2048": time_check(f"{name} on the 2048x2048 bucket",
+                                  k9_check(err, *pick(*top_big[1]), top_big[0]), own),
+            "per_scale": [r for r in per_scale if r["form"] == name],
+            "k9_ms_per_masked_call": k9_call_ms,
+            "corpus_ms": med * 1e3, "corpus_pairs_per_s": len(pairs) / med,
+        })
     k4_extra = {
         "launches_masked": launches["malta_ac"], "max_abs_err_masked": k4_err,
         "at_masked": {"shapes": k4_timed.shapes,
                       **time_check("malta_ac on the masked path", k4_timed,
                                    OWN_TIME["malta_ac"])},
     }
-    return k9_row, k4_extra
+    return k9_rows, k4_extra
+
+
+def time_k9_scales(timed: dict) -> list:
+    """K9 at every scale of the given buckets, in both forms: the wrapper's
+    time (CUDA events, mean of 10 calls), the kernel alone (profiler) and
+    the bound.  One row per (bucket, scale, form)."""
+    from codec_eval_tpu_torch.kernels.cuda import _lib, moments
+
+    rows = []
+    print("  K9 per scale: wrapper ms, kernel alone ms, bound ms")
+    for bucket, scales in timed.items():
+        for label, (x1, x2) in scales:
+            h, w = x1.shape[-2:]
+            planes = x1.numel() // (h * w)
+            if moments.launch_walk(planes, h, w) == moments.TILE_WALK:
+                walk = "tile walk"
+            else:
+                walk = f"strip walk, {moments.segment_rows(planes, h, w, _lib.sm_count(x1.device))}"
+                walk += "-row segments"
+            for form, fn, moved, ops in (
+                ("candidate_moments", functools.partial(moments.candidate_moments, x1, x2),
+                 5 * nbytes(x1), K9_OPS * x1.numel()),
+                ("reference_moments", functools.partial(moments.reference_moments, x1),
+                 3 * nbytes(x1), K9_REF_OPS * x1.numel()),
+            ):
+                ms, alone = time_ms(fn, 10), own_device_ms(fn, K9_KERNELS)
+                bound_ms, bound_by = bound(moved, ops)
+                alone_text = "not measured" if alone is None else f"{alone:.4f}"
+                print(f"    {form} {bucket[0]}x{bucket[1]} bucket {label} ({walk}): {ms:.4f}, "
+                      f"alone {alone_text}, bound {bound_ms:.4f} by {bound_by}")
+                rows.append({"form": form, "bucket": f"{bucket[0]}x{bucket[1]}", "scale": label,
+                             "walk": walk, "ms": ms, "own_device_ms": alone,
+                             "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
 
 
 def time_check(label: str, c: Check, own: Optional[str] = None) -> dict:
@@ -1446,6 +1610,8 @@ def main() -> int:
         return 1
     from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, _lib
 
+    args = sys.argv[1:]
+    profiling = "--profile" in args
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1457,13 +1623,16 @@ def main() -> int:
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for kernel in PTXAS_KERNELS:
         for line in _lib.ptxas_report(kernel):
-            entry = re.search(r"entry function '\w*?\d((?:malta_\w*?|bands_|scale_features_)"
-                              r"kernel)(?:ILi(\d+)E)?", line)
+            entry = re.search(r"entry function '\w*?\d((?:malta_\w*?|bands_|scale_features_|"
+                              r"opsin_|candidate_moments_|moments_tile_)kernel)(?:ILi(\d+)E)?",
+                              line)
             if entry:
                 arg = f"<{entry.group(2)}>" if entry.group(2) else ""
                 print(f"  ptxas -v, {entry.group(1)}{arg}:")
             elif "Compile time" not in line and "Function properties" not in line:
                 print(f"    {line}")
+    for kernel in SASS_KERNELS:
+        sass_summary(kernel)
 
     def done(phase, t0: float) -> None:
         print(f"  phase {phase}: {time.perf_counter() - t0:.2f} s")
@@ -1556,16 +1725,20 @@ def main() -> int:
         })
     done(7, t0)
 
+    # What only --profile uses is let go before phase 8's peak-memory reading.
+    if not profiling:
+        k78, k78_big = k78[:2] + ([],), k78_big[:2] + ([],)
+
     t0 = time.perf_counter()
     print(f"[8] the mixed-size corpus, masked, no device given | {card}")
-    k9_row, k4_extra = phase_mixed(big_u8, big_batch)
+    k9_rows, k4_extra = phase_mixed(big_u8, big_batch)
     k4_row = next(r for r in rows if r["name"] == "malta_ac")
     k4_row["max_abs_err"] = max(k4_row["max_abs_err"], k4_extra["max_abs_err_masked"])
     k4_row.update(k4_extra)
-    rows.append(k9_row)
+    rows.extend(k9_rows)
     done(8, t0)
 
-    if "--profile" in sys.argv[1:]:
+    if profiling:
         t0 = time.perf_counter()
         for image, batch in ((ref_u8, candidates(ref_u8, QUALITIES)), (big_u8, big_batch)):
             print(f"[profile] one score_batch of {len(batch)} at {image.shape[0]}px | {card}")

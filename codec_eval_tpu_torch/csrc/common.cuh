@@ -8,6 +8,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
 #include <cstring>
 
 namespace ce {
@@ -40,11 +42,11 @@ __device__ inline float block_sum(float v, float* scratch) {
   return s;
 }
 
-// Row-streamed column strips (K1, K3): a block owns kStrip output columns
-// of one plane and a segment of rows, and walks down the segment a group of
-// rows at a time.  kStripThreads threads: one per column of the strip grown
-// by the stencil's halo in the vertical passes.  The wrappers choose the
-// segment length (kernels/cuda/_lib.py STRIP, segment_rows).
+// Row-streamed column strips (K1, K2, K3, K9): a block owns kStrip output
+// columns of one plane and a segment of rows, and walks down the segment a
+// group of rows at a time.  kStripThreads threads: one per column of the
+// strip grown by the stencil's halo in the vertical passes.  The wrappers
+// choose the segment length (kernels/cuda/_lib.py STRIP, segment_rows).
 constexpr int kStrip = 128;
 constexpr int kStripThreads = 160;
 

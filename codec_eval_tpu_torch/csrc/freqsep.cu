@@ -12,11 +12,41 @@
 // (15 taps) of mf = XYB - LF, then a renormalized sigma-1.56 blur (7 taps)
 // of the red-green-suppressed residual, then the range reshaping.
 //
-// What bounds them on an H100: memory traffic.  Both are stencils with a
-// few dozen flops per tap and pixel, under the card's flop/byte balance.
-// K2 keeps the simple design: one 32x16 output tile per block, its input
-// tile and 2-pixel halo staged once in shared memory, the vertical pass
-// kept in shared memory and the horizontal pass done per output pixel.
+// What bounds them on an H100: memory traffic, with instruction issue
+// close behind.  Both are stencils with a few dozen flops per tap and
+// pixel, under the card's flop/byte balance.
+//
+// K2 reads 12 bytes and writes 12 per pixel (the reciprocal plane is
+// shared by the batch), and issues some 250 instructions per pixel: two
+// 5-tap passes x 3 channels, two absorbance mixes, three FastLog2f and six
+// IEEE divisions (p / q in FastLog2f and gamma / p, three channels each),
+// which the bit-equality with the plain version rests on.  Each division's
+// inline fast path is ~10 issued instructions (a reciprocal estimate, the
+// FCHK range check, five FFMA refinements, the branch around the slow
+// path; cuobjdump -sass), ~60 per pixel.  So the strips are issue-bound at
+// ~1.6x the byte bound (20 warps per SM, 76 registers).  The tiled design
+// (one 32x16 tile per block) staged a 36x20 halo tile, 1.41x its input,
+// with no overlap of copy and compute, and read the reciprocal per pixel:
+// 2.9x its byte bound.  The design (row-streamed column strips, as K3):
+// - A block owns a strip of 128 output columns and a segment of rows of one
+//   image, and walks down the segment in groups of RG2 = 5 rows, one per
+//   warp of the block.  The image
+//   is the fastest grid index, so the images of a (strip, segment) share
+//   the reciprocal rows in L2.  A segment re-reads 4 halo rows only, so
+//   segments can be short: the wrapper chooses them so that the grid fills
+//   the card at B = 1 too (freqsep.opsin_segment_rows).
+// - Stage A: one thread per grown column (132) keeps a 5-row window per
+//   channel in registers, runs the vertical chain and writes the group's
+//   vertical sums and centre values to shared memory.
+// - Stage B: each warp takes one row of the group, each lane 4 of its 128
+//   outputs (columns lane + 32 k), so that rows and addresses are the
+//   warp's, not the pixel's: the horizontal chain from shared memory, times
+//   the reciprocal (loaded for the next group during this one), then the
+//   mix, gamma, sensitivity and XYB, and coalesced stores of the three
+//   planes.  All five warps are busy.
+// - cp.async copies each thread's column a group of rows ahead into a ring
+//   of rows, zero-filled outside the image, with one wait per group.  Two
+//   block barriers per group.
 //
 // K3 chains two blurs, so its input halo compounds to 7 + 3 = 10 pixels.
 // Tiled in 32x16 blocks, that staged 3.7x the output area and cost about
@@ -60,9 +90,6 @@
 
 namespace {
 
-constexpr int TW = 32;
-constexpr int TH = 16;
-
 __device__ __forceinline__ float fast_log2(float x) {
   const int bits = __float_as_int(x);
   const int e = bits - 0x3F2AAAAB;
@@ -74,74 +101,165 @@ __device__ __forceinline__ float fast_log2(float x) {
   return p / q + (float)ex;
 }
 
+// The tap chain of the plain version: fma(t0, x0, t1*x1), then fma(ti, xi,
+// acc) in tap order.
+template <int N>
+__device__ __forceinline__ float chain(const float* t, const float* x) {
+  float acc = fmaf(t[0], x[0], t[1] * x[1]);
+#pragma unroll
+  for (int i = 2; i < N; ++i) acc = fmaf(t[i], x[i], acc);
+  return acc;
+}
+
 // ---------------------------------------------------------------- K2: opsin
 
 constexpr int OR = 2;  // radius of the sigma-1.2 surround blur
 constexpr int OK = 2 * OR + 1;
-constexpr int OSW = TW + 2 * OR;
-constexpr int OSH = TH + 2 * OR;
+// Grown column g in [0, G2) is x0 - OR + g (stage A, thread g); output
+// column o in [0, kStrip) is x0 + o = grown column o + OR.
+constexpr int G2 = ce::kStrip + 2 * OR;
+// Rows per group, one per warp in stage B: warp i takes the group's row i,
+// each lane the columns lane + 32 k, k < PIX2.
+constexpr int RG2 = ce::kStripThreads / 32;
+constexpr int PIX2 = ce::kStrip / 32;
+// The ring of input rows: a group read, a group in flight.
+constexpr int NSLOT2 = 2 * RG2;
+constexpr int DIST2 = NSLOT2 - RG2;  // rows copied ahead
+static_assert(DIST2 == RG2, "the ring holds two groups");
+static_assert(G2 <= ce::kStripThreads, "one thread per grown column");
+static_assert(RG2 * 32 == ce::kStripThreads, "one row of the group per warp");
+
+struct OpsinSmem {
+  float slot[NSLOT2][3][G2];  // linear RGB of the input rows; zeros outside the image
+  float v[RG2][6][G2];        // per row of the group: vertical sums R/G/B, centre R/G/B
+};
 
 // consts: m00..m22, bias0..2, gamma mul, gamma offset, gamma sub.
-__global__ void __launch_bounds__(ce::kThreads)
+//
+// Block: one (segment, strip, image), image fastest.  Step s reads input
+// row r = y0 - OR + s; stage A completes the vertical sums of output row
+// y = r - OR, stage B that row's XYB.
+__global__ void __launch_bounds__(ce::kStripThreads, 4)
 opsin_kernel(const float* __restrict__ lin, const float* __restrict__ recip,
-             float* __restrict__ out, int h, int w, ce::Floats<15> k, ce::Floats<OK> taps) {
-  __shared__ float s[3][OSH][OSW];
-  __shared__ float v[3][TH][OSW];
+             float* __restrict__ out, int b, int h, int w, int seg, ce::Floats<15> k,
+             ce::Floats<OK> taps) {
+  __shared__ OpsinSmem sm;
   const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int img = blockIdx.x % b;
+  const int tile = blockIdx.x / b;
+  const int strips = (w + ce::kStrip - 1) / ce::kStrip;
+  const int x0 = tile % strips * ce::kStrip, y0 = tile / strips * seg;
+  const int y_end = min(y0 + seg, h), x_end = min(x0 + ce::kStrip, w);
   const size_t plane = (size_t)h * w;
-  const float* src = lin + (size_t)blockIdx.z * 3 * plane;
-  float* dst = out + (size_t)blockIdx.z * 3 * plane;
+  const float* src = lin + (size_t)img * 3 * plane;
+  float* dst = out + (size_t)img * 3 * plane;
 
-  for (int i = tid; i < 3 * OSH * OSW; i += ce::kThreads) {
-    const int c = i / (OSH * OSW), r = i % (OSH * OSW);
-    const int sy = r / OSW, sx = r % OSW;
-    const int gy = y0 + sy - OR, gx = x0 + sx - OR;
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    s[c][sy][sx] = in ? src[c * plane + (size_t)gy * w + gx] : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < 3 * TH * OSW; i += ce::kThreads) {
-    const int c = i / (TH * OSW), r = i % (TH * OSW);
-    const int ty = r / OSW, sx = r % OSW;
-    float acc = fmaf(taps.v[0], s[c][ty][sx], taps.v[1] * s[c][ty + 1][sx]);
+  // Stage A's column, and its copies of the next input row into a slot:
+  // row r_next = y0 - OR + s at step s, one row further at each call.
+  const int gx_a = x0 - OR + tid;
+  const bool col_in = tid < G2 && gx_a >= 0 && gx_a < w;
+  int r_next = y0 - OR;
+  const float* next = src + (ptrdiff_t)r_next * w + gx_a;
+  auto issue = [&](float (*slot)[G2]) {
+    if (tid < G2) {
+      const bool in = col_in && r_next >= 0 && r_next < h;
 #pragma unroll
-    for (int t = 2; t < OK; ++t) acc = fmaf(taps.v[t], s[c][ty + t][sx], acc);
-    v[c][ty][sx] = acc;
-  }
-  __syncthreads();
+      for (int c = 0; c < 3; ++c) ce::cp_async4(&slot[c][tid], in ? next + c * plane : src, in);
+    }
+    ce::cp_async_commit();
+    ++r_next;
+    next += w;
+  };
+
+  // Stage B: this thread's row of each group (its warp) and its columns
+  // lane + 32 k.  The reciprocals of the group at step s0 are loaded a group
+  // ahead, so that the loads hide under the barrier and stage A.
+  const int row_b = tid / 32, lane = tid % 32;
+  float rn[PIX2];
+  auto load_recips = [&](int s0) {
+    const int y = y0 - 2 * OR + s0 + row_b;
+    const bool row_in = y >= y0 && y < y_end;
+    const float* rp = recip + (ptrdiff_t)y * w + x0 + lane;
+#pragma unroll
+    for (int k = 0; k < PIX2; ++k)
+      rn[k] = row_in && x0 + lane + 32 * k < x_end ? rp[32 * k] : 0.f;
+  };
+
+  float win[3][OK];  // stage A: rows r - 4 .. r of each channel
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < OK; ++i) win[c][i] = 0.f;
 
   const float* m = k.v;
-  for (int i = tid; i < TH * TW; i += ce::kThreads) {
-    const int ty = i / TW, tx = i % TW;
-    const int gy = y0 + ty, gx = x0 + tx;
-    if (gy >= h || gx >= w) continue;
-    const size_t gi = (size_t)gy * w + gx;
-    const float rn = recip[gi];
-    float bl[3], ct[3];
+  const int steps = seg + 2 * OR;
+  const int groups = (steps + RG2 - 1) / RG2;
+  // Step s's row goes to slot s % NSLOT2: group grp reads the half
+  // (grp & 1) of the ring and fills the other half.
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float acc = fmaf(taps.v[0], v[c][ty][tx], taps.v[1] * v[c][ty][tx + 1]);
+  for (int s = 0; s < DIST2; ++s) issue(sm.slot[s]);
+  load_recips(0);
+
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    const int s0 = grp * RG2;
+    const int read_half = (grp & 1) * RG2, fill_half = RG2 - read_half;
+
+    // Stage A: the vertical pass of one grown column, RG2 rows.
 #pragma unroll
-      for (int t = 2; t < OK; ++t) acc = fmaf(taps.v[t], v[c][ty][tx + t], acc);
-      bl[c] = acc * rn;
-      ct[c] = s[c][ty + OR][tx + OR];
+    for (int i = 0; i < RG2; ++i) issue(sm.slot[fill_half + i]);
+    ce::cp_async_wait<DIST2>();  // this group's rows are in
+#pragma unroll
+    for (int i = 0; i < RG2; ++i) {
+      if (tid < G2) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+#pragma unroll
+          for (int j = 0; j < OK - 1; ++j) win[c][j] = win[c][j + 1];
+          win[c][OK - 1] = sm.slot[read_half + i][c][tid];
+          sm.v[i][c][tid] = chain<OK>(taps.v, win[c]);
+          sm.v[i][3 + c][tid] = win[c][OR];
+        }
+      }
     }
-    float xyb[3];
+    __syncthreads();
+
+    // Stage B: warp row_b takes the group's row row_b, adjacent lanes on
+    // adjacent columns.
+    const int y = y0 - 2 * OR + s0 + row_b;
+    if (y >= y0 && y < y_end) {
+      const float (*v)[G2] = sm.v[row_b];
+      float* out_row = dst + (size_t)y * w + x0 + lane;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float bias = m[9 + c];
-      const float pre = fmaf(m[3 * c + 2], bl[2], fmaf(m[3 * c], bl[0], m[3 * c + 1] * bl[1])) + bias;
-      const float cur = fmaf(m[3 * c + 2], ct[2], fmaf(m[3 * c], ct[0], m[3 * c + 1] * ct[1])) + bias;
-      const float p = fmaxf(fmaxf(pre, bias), 1e-4f);
-      const float gamma = fmaf(m[12], fast_log2(fmaxf(p, 0.f) + m[13]), -m[14]);
-      const float sens = fmaxf(gamma / p, 1e-4f);
-      xyb[c] = fmaxf(cur * sens, bias);
+      for (int k = 0; k < PIX2; ++k) {
+        const int o = lane + 32 * k;
+        if (x0 + o >= x_end) break;
+        float bl[3], ct[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          bl[c] = chain<OK>(taps.v, &v[c][o]) * rn[k];
+          ct[c] = v[3 + c][o + OR];
+        }
+        float xyb[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float bias = m[9 + c];
+          const float pre = fmaf(m[3 * c + 2], bl[2], fmaf(m[3 * c], bl[0], m[3 * c + 1] * bl[1])) + bias;
+          const float cur = fmaf(m[3 * c + 2], ct[2], fmaf(m[3 * c], ct[0], m[3 * c + 1] * ct[1])) + bias;
+          const float p = fmaxf(fmaxf(pre, bias), 1e-4f);
+          const float gamma = fmaf(m[12], fast_log2(fmaxf(p, 0.f) + m[13]), -m[14]);
+          const float sens = fmaxf(gamma / p, 1e-4f);
+          xyb[c] = fmaxf(cur * sens, bias);
+        }
+        out_row[32 * k] = xyb[0] - xyb[1];
+        out_row[plane + 32 * k] = xyb[0] + xyb[1];
+        out_row[2 * plane + 32 * k] = xyb[2];
+      }
     }
-    dst[gi] = xyb[0] - xyb[1];
-    dst[plane + gi] = xyb[0] + xyb[1];
-    dst[2 * plane + gi] = xyb[2];
+    load_recips(s0 + RG2);
+    __syncthreads();
   }
+  ce::cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------- K3: bands
@@ -183,16 +301,6 @@ __device__ __forceinline__ float amplify_range(float v, float w) {
 }
 __device__ __forceinline__ float maximum_clamp(float v, float m, float mul) {
   return v >= m ? fmaf(v - m, mul, m) : (v < -m ? fmaf(v + m, mul, -m) : v);
-}
-
-// The tap chain of the plain version: fma(t0, x0, t1*x1), then fma(ti, xi,
-// acc) in tap order.
-template <int N>
-__device__ __forceinline__ float chain(const float* t, const float* x) {
-  float acc = fmaf(t[0], x[0], t[1] * x[1]);
-#pragma unroll
-  for (int i = 2; i < N; ++i) acc = fmaf(t[i], x[i], acc);
-  return acc;
 }
 
 struct BandsSmem {
@@ -379,13 +487,17 @@ bands_kernel(const float* __restrict__ xyb, const float* __restrict__ lf,
 
 }  // namespace
 
-// lin, out: (b, 3, h, w); recip: (h, w); consts: 15 host floats; taps: 5.
-extern "C" int ce_opsin_xyb(const float* lin, const float* recip, float* out, int b,
-                            int h, int w, const float* consts, const float* taps,
+// lin, out: (b, 3, h, w); recip: (h, w); seg: rows per segment; consts: 15
+// host floats; taps: 5.
+extern "C" int ce_opsin_xyb(const float* lin, const float* recip, float* out, int b, int h,
+                            int w, int seg, const float* consts, const float* taps,
                             void* stream) {
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, b);
-  opsin_kernel<<<grid, ce::kThreads, 0, (cudaStream_t)stream>>>(
-      lin, recip, out, h, w, ce::load_floats<15>(consts), ce::load_floats<OK>(taps));
+  if (b <= 0 || h <= 0 || w <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)b * ((w + ce::kStrip - 1) / ce::kStrip) *
+                           ((h + seg - 1) / seg);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  opsin_kernel<<<(unsigned)blocks, ce::kStripThreads, 0, (cudaStream_t)stream>>>(
+      lin, recip, out, b, h, w, seg, ce::load_floats<15>(consts), ce::load_floats<OK>(taps));
   return (int)cudaGetLastError();
 }
 

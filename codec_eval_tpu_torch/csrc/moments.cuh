@@ -1,13 +1,33 @@
-// The SSIM moment tile that K1 (scale_features.cu) and K9 (moments.cu) share.
+// The SSIM moment strips that K1 (scale_features.cu) and K9 (moments.cu)
+// share: the zero-boundary normalized sigma-1.5 Gaussian (15 taps) of the
+// moments of one plane, walked down a column strip.
 //
-// Both kernels blur the candidate moments x2, x2*x2 and x1*x2 of one
-// (pair, channel) plane with the normalized sigma-1.5 Gaussian (15 taps,
-// zero padding): one 32x16 output tile per block, x1 and x2 staged once
-// with a 7-pixel zero halo in shared memory, the two products formed in
-// registers, the vertical pass kept in shared memory and the horizontal pass
-// done per output pixel.  Taps add in order, t0*x0 first, as
-// kernels/blur.py:fir_separable adds them; under -fmad=false the three
-// blurs equal that plain version bit for bit.
+// - A block owns a strip of kStrip = 128 output columns and a segment of
+//   rows of one plane, and walks down the segment in groups of RG = 8 rows
+//   (the wrappers choose the segment length).
+// - Stage A: each of kStripThreads = 160 threads owns one column of the
+//   strip grown by the radius (142) and keeps the moments of its last 15
+//   rows in registers, the products formed once as a row arrives.  It
+//   writes the group's vertical sums to shared memory, quarter-interleaved
+//   by column.
+// - Stage B (the caller's): each of 128 threads takes four adjacent
+//   outputs in a quarter of the group's rows; `horizontal_quad` reads 18
+//   values per moment and row (4.5 loads per output) and runs the
+//   horizontal pass.
+// - cp.async copies each thread's column of the inputs a group of rows
+//   ahead into a ring of rows, zero-filled outside the image; one wait per
+//   group lets the compiler interleave the group's rows.  Two block
+//   barriers per group.
+//
+// Three forms:
+// - kFeatures (K1): inputs x1, x2; moments x2, x2*x2, x1*x2, and the centre
+//   x2 for the edge maps;
+// - kCandidate (K9): inputs x1, x2; moments x2, x2*x2, x1*x2;
+// - kReference (K9's reference side): input x1; moments x1, x1*x1.
+//
+// Taps add in kernels/blur.py:fir_separable's order, t0*x0 first, then
+// + tk*xk, vertical pass first; under -fmad=false every blur equals that
+// plain version bit for bit.  No tap folding: it would change the rounding.
 #pragma once
 
 #include "common.cuh"
@@ -17,66 +37,159 @@ namespace moments {
 
 constexpr int R = 7;
 constexpr int K = 2 * R + 1;
-constexpr int TW = 32;
-constexpr int TH = 16;
-constexpr int SW = TW + 2 * R;
-constexpr int SH = TH + 2 * R;
+constexpr int G = kStrip + 2 * R;  // grown column g is x0 - R + g
+// Stage B: each thread makes QUAD adjacent outputs from one run of loads.
+constexpr int QUAD = 4;
+constexpr int QUADS = kStrip / QUAD;
+// A row of vertical sums in shared memory, column g at [g % QUAD][g / QUAD],
+// so that thread j's loads of columns QUAD * j + m take one bank per lane.
+// The quarters sit 40 floats apart (8 banks).
+constexpr int kQuarter = 40;
+// Rows per group; stage B's threads split a group's rows in PARTS
+// interleaved parts.
+constexpr int RG = 8;
+constexpr int PARTS = 4;
+constexpr int B_THREADS = PARTS * QUADS;
+// The ring of input rows: a group read, a group in flight.
+constexpr int NSLOT = 2 * RG;
+constexpr int DIST = NSLOT - RG;  // rows copied ahead
+static_assert(DIST == RG, "the ring holds two groups");
+static_assert(G <= kStripThreads && G <= QUAD * kQuarter, "");
+static_assert(B_THREADS <= kStripThreads && RG % PARTS == 0, "");
 
-struct Tile {
-  float a[SH][SW];     // x1 tile + halo
-  float b[SH][SW];     // x2 tile + halo
-  float v[3][TH][SW];  // vertical blurs of x2, x2*x2, x1*x2
+enum Form { kFeatures, kCandidate, kReference };
+
+template <int FORM>
+struct Shape {
+  static constexpr int inputs = FORM == kReference ? 1 : 2;
+  static constexpr int moments = FORM == kReference ? 2 : 3;
+  static constexpr int rows = moments + (FORM == kFeatures ? 1 : 0);  // + K1's centre x2
 };
 
-// Stage the (x0, y0) tile of planes p1 and p2 (zeros outside the image) and
-// run the vertical pass of the three products into t.v.  Ends with the
-// block synchronized.
-__device__ __forceinline__ void stage_vertical(Tile& t, const float* __restrict__ p1,
-                                               const float* __restrict__ p2, int x0, int y0,
-                                               int h, int w, const Floats<K>& taps) {
-  for (int i = threadIdx.x; i < SH * SW; i += kThreads) {
-    const int sy = i / SW, sx = i % SW;
-    const int gy = y0 + sy - R, gx = x0 + sx - R;
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    const size_t gi = (size_t)gy * w + gx;
-    t.a[sy][sx] = in ? p1[gi] : 0.f;
-    t.b[sy][sx] = in ? p2[gi] : 0.f;
-  }
-  __syncthreads();
+using Row = float[QUAD][kQuarter];
 
-  for (int i = threadIdx.x; i < TH * SW; i += kThreads) {
-    const int ty = i / SW, sx = i % SW;
-    float xa = t.a[ty][sx], xb = t.b[ty][sx];
-    float m = taps.v[0] * xb;
-    float q22 = taps.v[0] * (xb * xb);
-    float q12 = taps.v[0] * (xa * xb);
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      xa = t.a[ty + k][sx];
-      xb = t.b[ty + k][sx];
-      m = m + taps.v[k] * xb;
-      q22 = q22 + taps.v[k] * (xb * xb);
-      q12 = q12 + taps.v[k] * (xa * xb);
-    }
-    t.v[0][ty][sx] = m;
-    t.v[1][ty][sx] = q22;
-    t.v[2][ty][sx] = q12;
-  }
-  __syncthreads();
+template <int FORM>
+struct StripSmem {
+  float slot[NSLOT][Shape<FORM>::inputs][G];
+  Row v[RG][Shape<FORM>::rows];  // per row of the group: vertical sums (and centre)
+};
+
+// Column QUAD * j + M of a row of vertical sums.
+template <int M>
+__device__ __forceinline__ float col(const Row& row, int j) {
+  return row[M % QUAD][j + M / QUAD];
 }
 
-// The horizontal pass at output pixel (ty, tx) of the tile: mu2, s22, s12.
-__device__ __forceinline__ void horizontal(const Tile& t, int ty, int tx, const Floats<K>& taps,
-                                           float& mu2, float& s22, float& s12) {
-  mu2 = taps.v[0] * t.v[0][ty][tx];
-  s22 = taps.v[0] * t.v[1][ty][tx];
-  s12 = taps.v[0] * t.v[2][ty][tx];
+// The blur's order: t0*x0 first, then + tk*xk.
+__device__ __forceinline__ float fir(const float* t, const float* x) {
+  float acc = t[0] * x[0];
 #pragma unroll
-  for (int k = 1; k < K; ++k) {
-    mu2 = mu2 + taps.v[k] * t.v[0][ty][tx + k];
-    s22 = s22 + taps.v[k] * t.v[1][ty][tx + k];
-    s12 = s12 + taps.v[k] * t.v[2][ty][tx + k];
+  for (int k = 1; k < K; ++k) acc = acc + t[k] * x[k];
+  return acc;
+}
+
+template <int M = 0>
+__device__ __forceinline__ void load_run(const Row& row, int j, float* x) {
+  x[M] = col<M>(row, j);
+  if constexpr (M + 1 < K + QUAD - 1) load_run<M + 1>(row, j, x);
+}
+
+// The horizontal pass at output columns QUAD * q .. QUAD * q + 3 of a row.
+__device__ __forceinline__ void horizontal_quad(const Row& row, int q, const float* t,
+                                                float (&out)[QUAD]) {
+  float x[K + QUAD - 1];
+  load_run(row, q, x);
+#pragma unroll
+  for (int p = 0; p < QUAD; ++p) out[p] = fir(t, x + p);
+}
+
+// Walk one block's segment: output rows [y0, y_end) of the strip at x0 of
+// planes p1 (x1) and p2 (x2; unused by kReference).  Step s reads input row
+// r = y0 - R + s; stage A completes the vertical sums of row y = r - R.
+// Stage B calls emit(v, y) in threads tid < B_THREADS, where v holds row
+// y's vertical sums (Shape<FORM>::rows of them); thread tid takes quad
+// tid % QUADS of the rows tid / QUADS, tid / QUADS + PARTS, ...
+template <int FORM, class Emit>
+__device__ __forceinline__ void strip_walk(StripSmem<FORM>& sm, const float* __restrict__ p1,
+                                           const float* __restrict__ p2, int h, int w, int x0,
+                                           int y0, int y_end, int seg, const Floats<K>& taps,
+                                           Emit&& emit) {
+  constexpr int NM = Shape<FORM>::moments;
+  const int tid = threadIdx.x;
+  const int gx = x0 - R + tid;
+  const bool col_in = tid < G && gx >= 0 && gx < w;
+  // The copy of input row y0 - R + s (step s) into a slot.
+  auto issue = [&](int s, float (*slot)[G]) {
+    if (tid < G) {
+      const int r = y0 - R + s;
+      const bool in = col_in && r >= 0 && r < h;
+      const size_t gi = in ? (size_t)r * w + gx : 0;
+      cp_async4(&slot[0][tid], p1 + gi, in);
+      if constexpr (Shape<FORM>::inputs == 2) cp_async4(&slot[1][tid], p2 + gi, in);
+    }
+    cp_async_commit();
+  };
+
+  float win[NM][K];  // the moments of rows r - 14 .. r
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int i = 0; i < K; ++i) win[m][i] = 0.f;
+
+  const int part = tid / QUADS;
+  const int steps = seg + 2 * R;
+  const int groups = (steps + RG - 1) / RG;
+  // Step s's row goes to slot s % NSLOT: group grp reads the half
+  // (grp & 1) of the ring and fills the other half.
+#pragma unroll
+  for (int s = 0; s < DIST; ++s) issue(s, sm.slot[s]);
+
+#pragma unroll 1
+  for (int grp = 0; grp < groups; ++grp) {
+    const int s0 = grp * RG;
+    const int read_half = (grp & 1) * RG, fill_half = RG - read_half;
+
+    // Stage A: the vertical pass of one grown column, RG rows.
+#pragma unroll
+    for (int i = 0; i < RG; ++i) issue(s0 + i + DIST, sm.slot[fill_half + i]);
+    cp_async_wait<DIST>();  // this group's rows are in
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      if (tid < G) {
+#pragma unroll
+        for (int m = 0; m < NM; ++m)
+#pragma unroll
+          for (int j = 0; j < K - 1; ++j) win[m][j] = win[m][j + 1];
+        const float xa = sm.slot[read_half + i][0][tid];
+        if constexpr (FORM == kReference) {
+          win[0][K - 1] = xa;
+          win[1][K - 1] = xa * xa;
+        } else {
+          const float xb = sm.slot[read_half + i][1][tid];
+          win[0][K - 1] = xb;
+          win[1][K - 1] = xb * xb;
+          win[2][K - 1] = xa * xb;
+        }
+        const int cq = tid % QUAD, cj = tid / QUAD;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) sm.v[i][m][cq][cj] = fir(taps.v, win[m]);
+        if constexpr (FORM == kFeatures) sm.v[i][3][cq][cj] = win[0][R];
+      }
+    }
+    __syncthreads();
+
+    // Stage B: the caller's, at the group's output rows.
+    if (tid < B_THREADS) {
+#pragma unroll 1
+      for (int i = part; i < RG; i += PARTS) {
+        const int y = y0 - 2 * R + s0 + i;
+        if (y < y0 || y >= y_end) continue;
+        emit(sm.v[i], y);
+      }
+    }
+    __syncthreads();
   }
+  cp_async_wait<0>();
 }
 
 }  // namespace moments

@@ -11,10 +11,11 @@ from .freqsep import bands_batch, opsin_xyb_batch
 from .malta import malta_ac_batch, malta_diffmap_batch
 from . import scale_features  # the module: K8's wrapper shares its name
 from .maskac import mask_diff_ac_batch
-from .moments import candidate_moments
+from .moments import candidate_moments, reference_moments
 from .scale_features import scale_features_batch
 
-#: Every kernel wrapper of the port, by kernel name.
+#: Every kernel wrapper of the port, by kernel name.  Two are a second form
+#: of another's kernel: K8 (K1 at N = 1) and K9's one-input reference form.
 WRAPPERS = {
     "scale_features": scale_features_batch,
     "opsin_xyb": opsin_xyb_batch,
@@ -25,4 +26,5 @@ WRAPPERS = {
     "mask_diff_ac": mask_diff_ac_batch,
     "scale_features_pair": scale_features.scale_features,
     "candidate_moments": candidate_moments,
+    "reference_moments": reference_moments,
 }

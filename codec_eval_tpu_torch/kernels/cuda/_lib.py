@@ -50,8 +50,8 @@ F = ctypes.c_float
 SIGNATURES = {
     # x1, mu1, s11, x2, partial, counter, out, n, h, w, seg, taps, stream
     "ce_scale_features": (P, P, P, P, P, P, P, I, I, I, I, P, P),
-    # lin, recip, out, b, h, w, consts, taps, stream
-    "ce_opsin_xyb": (P, P, P, I, I, I, P, P, P),
+    # lin, recip, out, b, h, w, seg, consts, taps, stream
+    "ce_opsin_xyb": (P, P, P, I, I, I, I, P, P, P),
     # xyb, lf, recip332, recip156, out, b, h, w, seg, consts, taps332, taps156, stream
     "ce_bands": (P, P, P, P, P, I, I, I, I, P, P, P, P),
     # diffs, out, b, h, w, stream
@@ -62,15 +62,30 @@ SIGNATURES = {
     "ce_blur": (P, P, P, I, I, I, P, I, P),
     # d1, b0, recip, out, b, h, w, taps, ntaps, ac_mul, stream
     "ce_mask_diff_ac": (P, P, P, P, I, I, I, P, I, F, P),
-    # x1, x2, out, planes, h, w, taps, stream
-    "ce_candidate_moments": (P, P, P, I, I, I, P, P),
+    # x1, x2, out, planes, h, w, walk, seg, taps, stream
+    "ce_candidate_moments": (P, P, P, I, I, I, I, I, P, P),
+    # x1, out, planes, h, w, walk, seg, taps, stream
+    "ce_reference_moments": (P, P, I, I, I, I, I, P, P),
 }
 
 
-#: Output columns per block of the row-streamed strip kernels, K1 and K3
-#: (``csrc/common.cuh`` ``kStrip``).  Each block also owns a segment of rows,
+#: Output columns per block of the row-streamed strip kernels, K1, K2, K3
+#: and K9 (``csrc/common.cuh`` ``kStrip``).  Each block also owns a segment of rows,
 #: whose length the kernel's wrapper chooses.
 STRIP = 128
+
+
+def segment_rows(blocks_per_segment: int, h: int, choices: tuple, blocks_per_sm: float,
+                 sms: int) -> int:
+    """Rows per segment of a strip kernel's grid: the longest of ``choices``
+    (longest first) for which ``blocks_per_segment`` blocks per segment of
+    rows, over ``h`` rows, still give each of ``sms`` SMs ``blocks_per_sm``
+    blocks; else the shortest.  A longer segment re-reads fewer halo rows,
+    a shorter one spreads a small launch over more of the card."""
+    for rows in choices:
+        if blocks_per_segment * -(-h // rows) >= blocks_per_sm * sms:
+            return rows
+    return choices[-1]
 
 
 @functools.lru_cache(maxsize=None)

@@ -151,24 +151,51 @@ def _opsin_args(consts) -> tuple:
     )
 
 
-def opsin_xyb_batch(linear_scaled: torch.Tensor, consts) -> torch.Tensor:
-    """K2.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if linear_scaled.device.type == "cpu":
-        return opsin_xyb_plain(linear_scaled, consts)
-    _lib.require_cuda("linear_scaled", linear_scaled, (None, 3, None, None))
+#: K2's grid: the segment lengths, longest first, and the blocks per SM its
+#: grid should give the card (five fit at once: 76 registers, 160 threads).
+#: Longer segments re-read fewer halo rows (4 each), but past ~3.5 blocks
+#: per SM their long blocks leave SMs idle at the end of the grid; a
+#: one-row segment is one row group, the shortest walk for a small image
+#: (measured on the H100: PERF.md, §6).
+OPSIN_SEGMENTS = (64, 32, 16, 8, 4, 1)
+OPSIN_MIN_BLOCKS_PER_SM = 3.5
+
+
+def opsin_segment_rows(b: int, h: int, w: int, sms: int) -> int:
+    """Rows per segment of K2's strips for a (b, h, w) launch on ``sms``
+    SMs (``_lib.segment_rows``), so that one image (the single-pair path's
+    B = 1) still spreads over the card."""
+    return _lib.segment_rows(b * -(-w // _lib.STRIP), h, OPSIN_SEGMENTS,
+                             OPSIN_MIN_BLOCKS_PER_SM, sms)
+
+
+def _opsin_launch(linear_scaled: torch.Tensor, consts, seg=None) -> torch.Tensor:
+    """One launch of K2 on a checked CUDA tensor; ``seg`` defaults to
+    ``opsin_segment_rows``'s choice."""
     b, _, h, w = linear_scaled.shape
     host_consts, taps = _opsin_args(tuple(consts))
     if len(host_consts) != 15 or len(taps) != 5:
         raise ValueError("opsin kernel takes 15 constants and 5 taps")
     dev = linear_scaled.device
+    if seg is None:
+        seg = opsin_segment_rows(b, h, w, _lib.sm_count(dev))
     out = torch.empty_like(linear_scaled)
     recip = recip_norm(h, w, SIGMA_SURROUND, dev)
     with torch.cuda.device(dev):
         rc = _lib.load().ce_opsin_xyb(
-            _lib.ptr(linear_scaled), _lib.ptr(recip), _lib.ptr(out), b, h, w,
+            _lib.ptr(linear_scaled), _lib.ptr(recip), _lib.ptr(out), b, h, w, seg,
             _lib.ptr(host_consts), _lib.ptr(taps), _lib.stream(dev),
         )
     _lib.check(rc, "ce_opsin_xyb")
+    return out
+
+
+def opsin_xyb_batch(linear_scaled: torch.Tensor, consts) -> torch.Tensor:
+    """K2.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if linear_scaled.device.type == "cpu":
+        return opsin_xyb_plain(linear_scaled, consts)
+    _lib.require_cuda("linear_scaled", linear_scaled, (None, 3, None, None))
+    out = _opsin_launch(linear_scaled, consts)
     opsin_xyb_batch.launches += 1
     return out
 
@@ -244,15 +271,11 @@ BANDS_SEGMENTS = (256, 128, 64, 32)
 
 def bands_segment_rows(b: int, h: int, w: int, sms: int) -> int:
     """Rows per segment of K3's strips for a (b, h, w) launch on ``sms``
-    SMs: the longest of ``BANDS_SEGMENTS`` whose grid still holds
-    ``BANDS_WAVES`` waves of blocks, else the shortest.  A segment re-reads
-    its 20 halo rows, so longer is cheaper while the card has blocks."""
-    blocks_per_segment = b * -(-w // _lib.STRIP)
-    min_blocks = BANDS_WAVES * BANDS_BLOCKS_PER_SM * sms
-    for rows in BANDS_SEGMENTS:
-        if blocks_per_segment * -(-h // rows) >= min_blocks:
-            return rows
-    return BANDS_SEGMENTS[-1]
+    SMs (``_lib.segment_rows``): ``BANDS_WAVES`` waves of blocks.  A
+    segment re-reads its 20 halo rows, so longer is cheaper while the card
+    has blocks."""
+    return _lib.segment_rows(b * -(-w // _lib.STRIP), h, BANDS_SEGMENTS,
+                             BANDS_WAVES * BANDS_BLOCKS_PER_SM, sms)
 
 
 def bands_batch(xyb: torch.Tensor, lf: torch.Tensor, consts) -> torch.Tensor:

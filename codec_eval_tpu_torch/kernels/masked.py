@@ -24,7 +24,7 @@ The metrics have two kinds of spatial operator:
 
 With per-pixel maps exact at valid pixels, the poolings take masked sums
 over the true pixel count.  Every sigma-1.5 moment blur of SSIMULACRA2 runs
-as K9 (``cuda/moments.py``), the reference side with x1 as both inputs;
+as K9 (``cuda/moments.py``), the reference side in its one-input form;
 Butteraugli's Malta sweeps run as K4; everything else is plain PyTorch on
 the pairs' device.
 """
@@ -41,7 +41,7 @@ from . import butteraugli as ba
 from . import dssim as ds
 from .blur import downscale_by_2
 from .color import rdiv
-from .cuda.moments import candidate_moments
+from .cuda.moments import candidate_moments, reference_moments
 from .cuda.scale_features import C2
 from .ssimulacra2 import NUM_SCALES, _to_positive_xyb, score_from_features
 
@@ -151,7 +151,7 @@ def ssimulacra2_masked_batch(
     pairs score exactly 100."""
     per_scale = []
     for xyb1, xyb2, mask, count in _xyb_pyramid(refs_pad, dists_pad, valid_hw):
-        mu1, s11, _ = candidate_moments(xyb1, xyb1)
+        mu1, s11 = reference_moments(xyb1)
         per_scale.append(_scale_features_masked(xyb1, mu1, s11, xyb2, mask, count))
     feats = torch.stack(per_scale, dim=2)  # (N, 3, 6, 2, 3), channel-major
     scores = score_from_features(feats.reshape(feats.shape[0], -1))

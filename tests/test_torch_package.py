@@ -141,10 +141,12 @@ def test_wrapper_names_its_source_and_the_pallas_kernel(name):
 
 def test_nine_wrappers_one_per_pallas_kernel():
     """K1-K9: nine wrappers, each replacing a different ``pl.pallas_call``
-    function of the JAX package, at a path and line that exist."""
-    assert len(WRAPPERS) == 9
-    replaced = [fn.replaces for fn in WRAPPERS.values()]
+    function of the JAX package, at a path and line that exist, and K9's
+    one-input reference form, a tenth wrapper of K9's kernel."""
+    assert len(WRAPPERS) == 10
+    replaced = [fn.replaces for name, fn in WRAPPERS.items() if name != "reference_moments"]
     assert len(set(replaced)) == 9
+    assert WRAPPERS["reference_moments"].replaces == WRAPPERS["candidate_moments"].replaces
     for where in replaced:
         path, line = where.split(":")
         assert path.startswith("codec_eval_tpu/kernels/pallas/")

@@ -1,19 +1,24 @@
 """The row-streamed strip kernels' grid and compile-time shapes, on the CPU.
 
-K1 (``csrc/scale_features.cu``, and K8, the same kernel at N = 1) and K3
-(``csrc/freqsep.cu`` ``bands_kernel``) give each block a strip of
-``_lib.STRIP`` output columns and a segment of rows that the wrapper
-chooses.  No ``nvcc`` or card is needed to check that:
+K1 (``csrc/scale_features.cu``, and K8, the same kernel at N = 1), K2 and
+K3 (``csrc/freqsep.cu`` ``opsin_kernel``, ``bands_kernel``) and K9
+(``csrc/moments.cu``, on K1's walk in ``moments.cuh``) give each block a
+strip of ``_lib.STRIP`` output columns and a segment of rows that the
+wrapper chooses.  No ``nvcc`` or card is needed to check that:
 
 - the blocks of a plane, in the kernels' block order (segment-major, then
-  strip) for the segment lengths the wrappers choose, cover every output
-  pixel once, for ragged sizes and for B = 1;
-- K3's segments keep two waves of blocks where the image allows it, and
-  K1's depend on the plane's height only, so its partial sums (one set per
-  block) do not depend on the number of candidates;
+  strip; K9 strip fastest, then plane, then segment, or its tile grid for
+  small launches) for the segment lengths the wrappers choose, cover every
+  output pixel once, for ragged sizes and for B = 1;
+- K2's, K3's and K9's segments keep two waves of blocks where the image
+  allows it, and K1's depend on the plane's height only, so its partial
+  sums (one set per block) do not depend on the number of candidates;
+- K9's values do not depend on its segment: a model of its walk (steps,
+  row groups, register windows, quads) in numpy equals the plain version
+  bit for bit for every segment length;
 - the radii and strip widths compiled into the sources equal the taps the
-  wrappers pass (``_taps(SIGMA_MF)``, ``_taps(SIGMA_UHF)``,
-  ``gaussian_taps(1.5)``) and ``_lib.STRIP``;
+  wrappers pass (``_taps(SIGMA_SURROUND)``, ``_taps(SIGMA_MF)``,
+  ``_taps(SIGMA_UHF)``, ``gaussian_taps(1.5)``) and ``_lib.STRIP``;
 - K1's wrapper leaves the sums and norms to the kernel.
 """
 
@@ -27,11 +32,15 @@ import torch
 from codec_eval_tpu.kernels.ssimulacra2 import NUM_SCALES
 from codec_eval_tpu_torch.kernels.cuda import _lib
 from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
+from codec_eval_tpu_torch.kernels.cuda import moments as tmo
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
 
 H100_SMS = 132
 SHAPES = [(37, 53), (67, 653), (36, 52), (101, 300), (261, 131), (16, 16), (8, 8),
           (512, 512), (1365, 2048), (2048, 2048)]
+
+
+RAGGED = [(101, 300), (261, 131), (16, 16), (8, 8)]
 
 
 def constant(source: str, name: str) -> int:
@@ -106,6 +115,273 @@ def test_bands_segments_take_the_longest_choice_that_fills_the_grid():
     assert tfs.bands_segment_rows(1, 400, 100, 1) == 64  # 7 of the 6 blocks needed
 
 
+def opsin_tiles(b: int, h: int, w: int, seg: int) -> list:
+    """K2's output rectangles ``(img, y0, y1, x0, x1)`` in its block order:
+    image fastest, then strip, then segment."""
+    strips, segments = -(-w // _lib.STRIP), -(-h // seg)
+    tiles = []
+    for bid in range(b * strips * segments):
+        img, tile = bid % b, bid // b
+        y0, x0 = tile // strips * seg, tile % strips * _lib.STRIP
+        tiles.append((img, y0, min(y0 + seg, h), x0, min(x0 + _lib.STRIP, w)))
+    return tiles
+
+
+def moments_tiles(planes: int, h: int, w: int, walk: int, seg: int = 0) -> list:
+    """K9's output rectangles ``(plane, y0, y1, x0, x1)`` in its block
+    order: the strip walk runs strip fastest, then plane, then segment of
+    ``seg`` rows; the tile walk takes a 32x16 tile per block, planes last."""
+    tiles = []
+    if walk == tmo.TILE_WALK:
+        tw, th = constant("moments.cu", "TW"), constant("moments.cu", "TH")
+        for p in range(planes):
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    tiles.append((p, y0, min(y0 + th, h), x0, min(x0 + tw, w)))
+        return tiles
+    strips, segments = -(-w // _lib.STRIP), -(-h // seg)
+    for bid in range(planes * strips * segments):
+        strip, p, segment = bid % strips, bid // strips % planes, bid // strips // planes
+        y0, x0 = segment * seg, strip * _lib.STRIP
+        tiles.append((p, y0, min(y0 + seg, h), x0, min(x0 + _lib.STRIP, w)))
+    return tiles
+
+
+def assert_planes_covered(tiles: list, planes: int, h: int, w: int, rows: int, cols: int):
+    by_plane = {}
+    for p, y0, y1, x0, x1 in tiles:
+        assert 0 <= y0 < y1 <= h and 0 <= x0 < x1 <= w
+        assert y1 - y0 <= rows and x1 - x0 <= cols
+        by_plane.setdefault(p, []).append((y0, y1, x0, x1))
+    assert sorted(by_plane) == list(range(planes))
+    for rects in by_plane.values():
+        covered = np.zeros((h, w), np.int8)
+        for y0, y1, x0, x1 in rects:
+            covered[y0:y1, x0:x1] += 1
+        assert (covered == 1).all()
+
+
+LAYOUT_SHAPES = RAGGED + [(512, 512), (1365, 2048)]
+
+
+@pytest.mark.parametrize("b", [1, 2, 10, 25])
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_opsin_blocks_cover_each_pixel_once(shape, b):
+    h, w = shape
+    seg = tfs.opsin_segment_rows(b, h, w, H100_SMS)
+    assert seg in tfs.OPSIN_SEGMENTS
+    assert_planes_covered(opsin_tiles(b, h, w, seg), b, h, w, seg, _lib.STRIP)
+
+
+@pytest.mark.parametrize("b", [1, 2, 10, 25])
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_moments_blocks_cover_each_pixel_once(shape, b):
+    h, w = shape
+    planes = 3 * b
+    walk = tmo.launch_walk(planes, h, w)
+    assert (walk == tmo.TILE_WALK) == (planes * h * w <= tmo.TILE_MAX_WORK)
+    for walk, seg, rows, cols in ((tmo.STRIP_WALK, tmo.segment_rows(planes, h, w, H100_SMS),
+                                   None, _lib.STRIP), (tmo.TILE_WALK, 0, 16, 32)):
+        assert walk == tmo.TILE_WALK or seg in tmo.SEGMENTS
+        assert_planes_covered(moments_tiles(planes, h, w, walk, seg), planes, h, w,
+                              rows or seg, cols)
+
+
+def group_steps(radius: int, rows_per_group: int, seg: int, h: int, y0: int) -> list:
+    """The output rows that a strip walk's steps complete, in order: step s
+    of the segment at y0 reads input row y0 - radius + s and completes
+    output row y0 - 2 * radius + s, kept where it lies in the segment."""
+    steps = seg + 2 * radius
+    groups = -(-steps // rows_per_group)
+    y_end = min(y0 + seg, h)
+    out = []
+    for s in range(groups * rows_per_group):
+        y = y0 - 2 * radius + s
+        if y0 <= y < y_end:
+            out.append(y)
+    return out
+
+
+@pytest.mark.parametrize("seg", [1, 4, 8, 16, 32, 64, 128])
+def test_walks_complete_each_row_of_a_segment_once(seg):
+    """K2 (radius 2, groups of RG2 rows) and K1/K9 (radius 7, groups of RG
+    rows): every row of every segment once, in order, for ragged heights."""
+    rg2 = constant("common.cuh", "kStripThreads") // 32
+    for radius, rg in ((constant("freqsep.cu", "OR"), rg2),
+                       (constant("moments.cuh", "R"), constant("moments.cuh", "RG"))):
+        for h in (8, 37, 261, 300):
+            for y0 in range(0, h, seg):
+                assert group_steps(radius, rg, seg, h, y0) == list(range(y0, min(y0 + seg, h)))
+
+
+def test_opsin_stage_b_takes_each_output_of_a_group_once():
+    """One row of the group per warp (RG2 = kStripThreads / 32), each lane
+    the columns lane + 32 k."""
+    src = (_lib.CSRC / "freqsep.cu").read_text()
+    assert "constexpr int RG2 = ce::kStripThreads / 32;" in src
+    assert "constexpr int PIX2 = ce::kStrip / 32;" in src
+    threads = constant("common.cuh", "kStripThreads")
+    rg, pix = threads // 32, _lib.STRIP // 32
+    taken = [(tid // 32, tid % 32 + 32 * k) for tid in range(threads) for k in range(pix)]
+    assert sorted(taken) == [(i, o) for i in range(rg) for o in range(_lib.STRIP)]
+
+
+def test_moments_stage_b_takes_each_output_of_a_group_once():
+    quad, parts, rg = (constant("moments.cuh", n) for n in ("QUAD", "PARTS", "RG"))
+    quads = _lib.STRIP // quad
+    taken = [(i, quad * (tid % quads) + p) for tid in range(parts * quads)
+             for i in range(tid // quads, rg, parts) for p in range(quad)]
+    assert sorted(taken) == [(i, o) for i in range(rg) for o in range(_lib.STRIP)]
+
+
+def test_opsin_segments_fill_the_card():
+    min_blocks = tfs.OPSIN_MIN_BLOCKS_PER_SM * H100_SMS
+
+    def blocks(b, h, w):
+        return len(opsin_tiles(b, h, w, tfs.opsin_segment_rows(b, h, w, H100_SMS)))
+
+    # The batch path (2048 px B=10, 1024 and 512 px) and one 2048 px image
+    # take the longest segments and still fill the card.
+    for b, h, w in ((10, 2048, 2048), (10, 1024, 1024), (25, 512, 512), (1, 2048, 2048)):
+        assert tfs.opsin_segment_rows(b, h, w, H100_SMS) == tfs.OPSIN_SEGMENTS[0]
+        assert blocks(b, h, w) >= min_blocks
+    # One 512 px image (a single pair) takes short segments, and its
+    # 256 px half one-row segments: more blocks than SMs, where the longest
+    # segments would give four and two.
+    assert tfs.opsin_segment_rows(1, 512, 512, H100_SMS) == 4
+    assert blocks(1, 512, 512) >= min_blocks
+    assert tfs.opsin_segment_rows(1, 256, 256, H100_SMS) == tfs.OPSIN_SEGMENTS[-1] == 1
+    assert blocks(1, 256, 256) >= min_blocks
+    # Each choice is the longest that fills the card, or the shortest.
+    for b, h, w in ((25, 256, 256), (1, 1024, 1024), (2, 261, 131), (1, 256, 256)):
+        seg = tfs.opsin_segment_rows(b, h, w, H100_SMS)
+        longer = [r for r in tfs.OPSIN_SEGMENTS if r > seg]
+        assert all(len(opsin_tiles(b, h, w, r)) < min_blocks for r in longer)
+        assert seg == tfs.OPSIN_SEGMENTS[-1] or blocks(b, h, w) >= min_blocks
+
+
+def test_moments_segments_fill_the_card_and_depend_on_the_launch_only():
+    assert list(inspect.signature(tmo.segment_rows).parameters) == ["planes", "h", "w", "sms"]
+    assert list(inspect.signature(tmo.launch_walk).parameters) == ["planes", "h", "w"]
+    min_blocks = tmo.MIN_BLOCKS_PER_SM * H100_SMS
+
+    def blocks(planes, h, w, seg):
+        return len(moments_tiles(planes, h, w, tmo.STRIP_WALK, seg))
+
+    # The masked path's top scales take the strip walk's longest segments
+    # and fill the card: the 2048x2048 and 2048x1408 buckets (N = 2), the
+    # 512 bucket (N = 8).
+    for planes, h, w in ((6, 2048, 2048), (6, 2048, 1408), (24, 512, 512), (6, 1024, 1024)):
+        seg = tmo.segment_rows(planes, h, w, H100_SMS)
+        assert tmo.launch_walk(planes, h, w) == tmo.STRIP_WALK
+        assert seg == tmo.SEGMENTS[0] and blocks(planes, h, w, seg) >= min_blocks
+    # Smaller launches: the longest segment that fills the card.
+    for planes, h, w in ((6, 512, 512), (24, 256, 256), (6, 896, 896), (6, 384, 640)):
+        seg = tmo.segment_rows(planes, h, w, H100_SMS)
+        assert tmo.launch_walk(planes, h, w) == tmo.STRIP_WALK
+        assert seg in tmo.SEGMENTS and blocks(planes, h, w, seg) >= min_blocks
+        assert all(blocks(planes, h, w, r) < min_blocks for r in tmo.SEGMENTS if r > seg)
+    # The smallest launches take the tile walk.
+    for planes, h, w in ((6, 256, 256), (24, 128, 128), (24, 16, 16), (6, 64, 64)):
+        assert planes * h * w <= tmo.TILE_MAX_WORK
+        assert tmo.launch_walk(planes, h, w) == tmo.TILE_WALK
+    assert tmo.segment_rows(6, 128, 128, H100_SMS) == tmo.SEGMENTS[-1]
+
+
+@pytest.mark.parametrize("blocks_per_segment, h, want", [
+    (10, 64, 64),   # one segment of 10 blocks fills 2.5 x 4: the longest
+    (10, 100, 64),
+    (4, 100, 32),   # 8 blocks with 64 rows, 16 with 32
+    (2, 80, 16),    # 6 blocks with 32 rows, 10 with 16
+    (2, 64, 8),     # 8 blocks with 16 rows, 16 with 8
+    (1, 40, 8),     # never enough: the shortest
+])
+def test_segment_rule_takes_the_longest_choice_that_fills_the_card(blocks_per_segment, h, want):
+    assert _lib.segment_rows(blocks_per_segment, h, (64, 32, 16, 8), 2.5, 4) == want
+
+
+def test_k2_k3_and_k9_share_one_segment_rule():
+    for fn in (tfs.opsin_segment_rows, tfs.bands_segment_rows, tmo.segment_rows):
+        assert "_lib.segment_rows(" in inspect.getsource(fn), fn.__name__
+    for b, h, w in ((10, 2048, 2048), (1, 512, 512), (2, 261, 131)):
+        strips = b * -(-w // _lib.STRIP)
+        assert tfs.opsin_segment_rows(b, h, w, H100_SMS) == _lib.segment_rows(
+            strips, h, tfs.OPSIN_SEGMENTS, tfs.OPSIN_MIN_BLOCKS_PER_SM, H100_SMS)
+        assert tfs.bands_segment_rows(b, h, w, H100_SMS) == _lib.segment_rows(
+            strips, h, tfs.BANDS_SEGMENTS, tfs.BANDS_WAVES * tfs.BANDS_BLOCKS_PER_SM, H100_SMS)
+        assert tmo.segment_rows(3 * b, h, w, H100_SMS) == _lib.segment_rows(
+            3 * strips, h, tmo.SEGMENTS, tmo.MIN_BLOCKS_PER_SM, H100_SMS)
+
+
+def test_compiled_walks_equal_the_wrappers_walks():
+    src = (_lib.CSRC / "moments.cu").read_text()
+    m = re.search(r"enum Walk : int \{ kStripWalk = (\d+), kTileWalk = (\d+) \};", src)
+    assert m and (int(m.group(1)), int(m.group(2))) == (tmo.STRIP_WALK, tmo.TILE_WALK)
+    # seg means rows per segment of the strip walk and nothing else.
+    assert "seg == 0" not in src and "seg <= 0" in src
+
+
+def k9_walk_model(x1: np.ndarray, x2, seg: int) -> np.ndarray:
+    """K9's strip walk on one (h, w) plane, in numpy f32: per block the
+    steps and row groups, the 15-row windows of the moments per grown
+    column, and the horizontal pass at the block's outputs.  ``x2`` None:
+    the reference form."""
+    taps = [np.float32(t) for t in tmo.gaussian_taps(tmo.SIGMA)]
+    r, rg, strip = constant("moments.cuh", "R"), constant("moments.cuh", "RG"), _lib.STRIP
+    k = 2 * r + 1
+    h, w = x1.shape
+    nm = 2 if x2 is None else 3
+    out = np.full((nm, h, w), np.nan, np.float32)
+
+    def fir(x, n):
+        """n outputs along axis 1 of (nm, k + n - 1, ...), taps in order."""
+        acc = taps[0] * x[:, 0:n]
+        for i in range(1, k):
+            acc = acc + taps[i] * x[:, i : i + n]
+        return acc
+
+    for y0 in range(0, h, seg):
+        y_end = min(y0 + seg, h)
+        for x0 in range(0, w, strip):
+            x_end = min(x0 + strip, w)
+            gx = x0 - r + np.arange(strip + 2 * r)
+            col_in = (gx >= 0) & (gx < w)
+            win = np.zeros((nm, k, strip + 2 * r), np.float32)
+            groups = -(-(seg + 2 * r) // rg)
+            for s in range(groups * rg):
+                row = y0 - r + s
+                inside = col_in & (0 <= row < h)
+                src = np.clip(gx, 0, w - 1)
+                xa = np.where(inside, x1[min(max(row, 0), h - 1), src], np.float32(0))
+                if x2 is None:
+                    new = [xa, xa * xa]
+                else:
+                    xb = np.where(inside, x2[min(max(row, 0), h - 1), src], np.float32(0))
+                    new = [xb, xb * xb, xa * xb]
+                win[:, :-1] = win[:, 1:]
+                win[:, -1] = new
+                v = fir(win, 1)[:, 0]  # (nm, grown columns)
+                y = y0 - 2 * r + s
+                if y0 <= y < y_end:
+                    out[:, y, x0:x_end] = fir(v, strip)[:, : x_end - x0]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (70, 150)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_moments_values_do_not_depend_on_the_segment(shape):
+    rng = np.random.default_rng(sum(shape))
+    x1 = rng.random((3,) + shape, dtype=np.float32)
+    x2 = rng.random((3,) + shape, dtype=np.float32)
+    cand = torch.stack(tmo.candidate_moments_plain(torch.from_numpy(x1), torch.from_numpy(x2)))
+    ref = torch.stack(tmo.reference_moments_plain(torch.from_numpy(x1)))
+    for seg in tmo.SEGMENTS:
+        for c in range(3):
+            got = k9_walk_model(x1[c], x2[c], seg)
+            np.testing.assert_array_equal(got, cand[:, c].numpy())
+            got = k9_walk_model(x1[c], None, seg)
+            np.testing.assert_array_equal(got, ref[:, c].numpy())
+
+
 def test_scale_features_segments_depend_on_the_height_only():
     params = inspect.signature(tsf.segment_rows).parameters
     assert list(params) == ["h"]
@@ -124,10 +400,14 @@ def test_scale_features_partials_follow_the_pyramid(side):
 
 
 def test_compiled_radii_equal_the_wrappers_taps():
+    assert 2 * constant("freqsep.cu", "OR") + 1 == len(tfs._taps(tfs.SIGMA_SURROUND))
     assert 2 * constant("freqsep.cu", "R1") + 1 == len(tfs._taps(tfs.SIGMA_MF))
     assert 2 * constant("freqsep.cu", "R2") + 1 == len(tfs._taps(tfs.SIGMA_UHF))
     assert 2 * constant("moments.cuh", "R") + 1 == len(tsf.gaussian_taps(tsf.SIGMA))
-    assert tsf.SIGMA == 1.5
+    assert 2 * constant("moments.cuh", "R") + 1 == len(tmo.gaussian_taps(tmo.SIGMA))
+    assert tsf.SIGMA == tmo.SIGMA == 1.5
+    # K9's tile walk for small launches.
+    assert (constant("moments.cu", "TW"), constant("moments.cu", "TH")) == (32, 16)
 
 
 def test_compiled_strip_equals_the_wrappers_strip():
@@ -138,10 +418,17 @@ def test_compiled_strip_equals_the_wrappers_strip():
     halo3 = constant("freqsep.cu", "R1") + constant("freqsep.cu", "R2")
     grown3 = _lib.STRIP + 2 * halo3
     grown1 = _lib.STRIP + 2 * constant("moments.cuh", "R")
-    quad = constant("scale_features.cu", "QUAD")
-    assert threads % 32 == 0 and max(grown3, grown1) <= threads
-    assert grown1 <= quad * constant("scale_features.cu", "kQuarter")
+    grown2 = _lib.STRIP + 2 * constant("freqsep.cu", "OR")
+    quad = constant("moments.cuh", "QUAD")
+    assert threads % 32 == 0 and max(grown3, grown1, grown2) <= threads
+    assert grown1 <= quad * constant("moments.cuh", "kQuarter")
     assert _lib.STRIP % quad == 0
+    # K2's stage B: one row of a group per warp, four columns per lane.
+    assert _lib.STRIP % 32 == 0
+    # K1's and K9's stage B: four parts of the group's rows, 32 quads each.
+    parts = constant("moments.cuh", "PARTS")
+    assert constant("moments.cuh", "RG") % parts == 0
+    assert parts * _lib.STRIP // quad <= threads
 
 
 def test_scale_features_wrapper_leaves_sums_and_norms_to_the_kernel():
