@@ -10,15 +10,18 @@ each failing loudly:
 
 1. device: the card's name and power limit, the kernels' build time, the
    compiler's registers, shared memory and spills of the strip kernels
-   (K1, K2, K3, K9 and K9's tile walk) and the Malta kernels (K4, K5), and
-   a summary of K2's SASS (its instructions and IEEE division sequence);
+   (K1, K2, K3, K9 and K9's tile walk; K6 and K7 at radii 1, 6 and 16) and
+   the Malta kernels (K4, K5), and a summary of K2's SASS (its
+   instructions and IEEE division sequence);
 2. K1-K4 against their plain PyTorch versions on the card, on the inputs the
    512 px all-metric sweep gives them (25 candidates and the reference at
    512 and 256 px, K1 at all six SSIMULACRA2 scales), and all six kernels
    at three ragged shapes (K6 at sigma 2.7 and 7.16), and K1, K2, K3 and
    K8 where the last strip and the last segment of rows are both ragged and
    at the smallest pyramid scales (K2 and K3 bit for bit, K8 equal to K1's
-   candidate in a batch);
+   candidate in a batch); K6 and K7 bit for bit at radii 1, 6 and 16 where
+   the last strip and segment are ragged, K6 at every segment length, and
+   K7 equal to K6's blur followed by the eager mask term;
 3. the 512 px slice: an ``EvalSession(MetricConfig.all(), device="cuda")``
    sweep of a 512x512 image through a host block-DCT codec at 25 quality
    levels, with the reports written, every kernel's launch counter read
@@ -31,12 +34,14 @@ each failing loudly:
    half-resolution pass), two candidates rescored on the host, one
    ``score_batch`` of 10 timed with its peak device memory; then every
    kernel against its plain version on that sweep's inputs (K1 at 2048 down
-   to 64 px; K2, K3 and K6 at 2048 and 1024; K4 at 1024; K5 at 2048);
+   to 64 px; K2, K3 and K6 at 2048 and 1024, K6 bit for bit; K4 at 1024;
+   K5 at 2048);
 6. each kernel's time against its plain version's and its bound, on both
-   paths for K1-K4, with the kernel-alone device time of K1-K5 (K8 in
-   phase 7); for K6 the dense operator product it replaces; and the
-   whole diffmap at 2048 and 1024 px both ways, through K5 and through the
-   prologue, K4 and the eager epilogue;
+   paths for K1-K4, with the kernel-alone device time of K1-K6 (K7 and K8
+   in phase 7); for K6 the dense operator product it replaces and a
+   ``conv2d`` with the 2-D outer-product kernel times the reciprocal
+   plane; and the whole diffmap at 2048 and 1024 px both ways, through K5
+   and through the prologue, K4 and the eager epilogue;
 7. the single-pair API and the codec-iter loop: the four ``calculate_*``
    and Butteraugli at 250 nits with no ``device`` on three 512 px
    candidates (K7 and K8 launch, K2-K4 once per pass at B = 1, K5 and K6
@@ -86,7 +91,7 @@ import sys
 import tempfile
 import time
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -104,7 +109,7 @@ BIG_PICKS = [50, 95]  # rescored on the host
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-6)  # f32 stencils: same arithmetic, same order
 K1_TOL = dict(rtol=1e-4, atol=1e-6)  # partial sums taken in another order
 SCORE_RTOL = {"ssimulacra2": 1e-4, "dssim": 1e-4, "psnr": 1e-4, "butteraugli": 5e-4}
-EXACT = dict(rtol=0.0, atol=0.0)  # K7: K6's tile code, K6's order, the same epilogue
+EXACT = dict(rtol=0.0, atol=0.0)  # K2, K3, K6, K7, K9: the plain version's operations in order
 PAIR_PICKS = [5, 50, 100]  # single pairs at 512 px, rescored on the host
 # A single pair on the card against the batch scorer's score of the same
 # candidate: the kernels run the same code at B = 1 as at B = 10; only
@@ -157,13 +162,18 @@ K9_KERNELS = ("candidate_moments_kernel", "moments_tile_kernel")
 OWN_TIME = {
     "scale_features": "scale_features_kernel", "opsin_xyb": "opsin_kernel",
     "bands": "bands_kernel", "malta_ac": "malta_kernel",
-    "malta_diffmap": "malta_diffmap_kernel", "scale_features_pair": "scale_features_kernel",
+    "malta_diffmap": "malta_diffmap_kernel", "blur": "blur_kernel",
+    "mask_diff_ac": "mask_diff_ac_kernel", "scale_features_pair": "scale_features_kernel",
     "candidate_moments": K9_KERNELS, "reference_moments": K9_KERNELS,
 }
 # The kernels whose compiler report (registers, shared memory, spills)
 # phase 1 prints, and those whose SASS it summarizes (K2's divisions).
 PTXAS_KERNELS = ("scale_features_kernel", "opsin_kernel", "bands_kernel", "malta",
-                 "candidate_moments_kernel", "moments_tile_kernel")
+                 "candidate_moments_kernel", "moments_tile_kernel", "blur_kernel",
+                 "mask_diff_ac_kernel")
+# K6 and K7 are instantiated at every radius 1..16; phase 1 reports these:
+# sigma 0.5, the path's 2.7 and 7.16.
+BLUR_RADII = {1: 0.5, 6: 2.7, 16: 7.16}
 SASS_KERNELS = ("opsin_kernel",)
 
 # ---------------------------------------------------------------- the codec
@@ -282,6 +292,8 @@ class Check:
     ops: float
     shapes: str
     library: Optional[Callable] = None
+    # Other PyTorch calls of the same function, timed beside it: name -> call.
+    others: dict = field(default_factory=dict)
 
 
 def card_line() -> str:
@@ -595,7 +607,7 @@ def check_odd_shapes(device: torch.device) -> None:
         for sigma in (ba.SIGMA_MASK, ba.SIGMA_LF):
             d = planes(2, 10.0)
             compare(f"K6 {b}x{h}x{w} sigma {sigma:g}", blur.blur_batch(d, sigma),
-                    blur.blur_batch_plain(d, sigma), **KERNEL_TOL)
+                    blur.blur_batch_plain(d, sigma), **EXACT)
     torch.cuda.synchronize()
 
 
@@ -646,6 +658,44 @@ def check_ragged_strips(device: torch.device) -> None:
         compare(f"K8 {h}x{w}", pair, sf.scale_features_plain(xyb1, mu1, s11, xyb2[0]),
                 **K1_TOL)
         compare(f"K8 {h}x{w} against K1's candidate 0", pair, got[0], **EXACT)
+    torch.cuda.synchronize()
+
+
+def check_blur_strips(device: torch.device) -> None:
+    """K6 and K7 on their strip walk, bit for bit against their plain
+    versions at radii 1, 6 and 16 (``BLUR_RADII``), where the last strip of
+    columns and the last segment of rows are both ragged: through the
+    wrappers, and K6 at every segment length of ``blur.SEGMENTS``; and K7
+    against K6's blur on the card followed by the eager mask term, so that
+    its b1, which it never stores, is K6's."""
+    from codec_eval_tpu_torch.kernels import butteraugli as ba
+    from codec_eval_tpu_torch.kernels.cuda import _lib, blur, maskac
+
+    rng = np.random.default_rng(SEED + 2)
+    mul = ba._MASK_DIFF_AC_MUL
+    for radius, sigma in BLUR_RADII.items():
+        if len(blur._host_taps(sigma)) != 2 * radius + 1:
+            raise AssertionError(f"sigma {sigma} does not give radius {radius}")
+        for b, h, w in ((3, 261, 300), (2, 517, 333)):
+            if w % _lib.STRIP == 0:
+                raise AssertionError(f"{h}x{w}: the last strip is not ragged")
+            d = torch.from_numpy(rng.random((b, 1, h, w), np.float32) * 10.0).to(device)
+            want = blur.blur_batch_plain(d, sigma)
+            seg = blur.segment_rows(b, h, w, _lib.sm_count(device))
+            got = blur.blur_batch(d, sigma)
+            compare(f"K6 R={radius} {b}x{h}x{w} (segments of {seg} rows)", got, want, **EXACT)
+            for rows in blur.SEGMENTS:
+                if h % rows == 0:
+                    raise AssertionError(f"K6 {h}x{w}: segment {rows} leaves nothing ragged")
+                compare(f"K6 R={radius} {b}x{h}x{w} (segments of {rows} rows)",
+                        blur._launch(d, sigma, rows), want, **EXACT)
+            d1, b0 = d[:, 0], torch.from_numpy(rng.random((h, w), np.float32) * 10.0).to(device)
+            k7 = maskac.mask_diff_ac_batch(d1, b0, mul, sigma)
+            compare(f"K7 R={radius} {b}x{h}x{w} (segments of {seg} rows)", k7,
+                    maskac.mask_diff_ac_plain(d1, b0, mul, sigma), **EXACT)
+            diff = b0 - got[:, 0]
+            compare(f"K7 R={radius} {b}x{h}x{w} against K6 and the eager mask term", k7,
+                    (mul * diff) * diff, **EXACT)
     torch.cuda.synchronize()
 
 
@@ -745,9 +795,11 @@ def phase_kernels_big(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.de
     Returns the checks for phase 6, K6's half-resolution check, and at both
     resolutions the whole diffmap both ways (K5 with its staging; the
     Malta prologue, K4 and the eager epilogue) for phase 6 to time."""
+    import torch.nn.functional as F
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
     from codec_eval_tpu_torch.kernels.cuda import blur, malta
+    from codec_eval_tpu_torch.kernels.cuda.freqsep import _taps, recip_norm
 
     planar = torch.from_numpy(np.ascontiguousarray(np.moveaxis(cands_u8, -1, 1))).to(device)
     ref = torch.from_numpy(ref_u8).to(device)
@@ -797,13 +849,24 @@ def phase_kernels_big(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.de
         sigma = ba.SIGMA_MASK
         bh, bw = d1.shape[-2:]
         got = blur.blur_batch(d1, sigma)
+        want = blur.blur_batch_plain(d1, sigma)
+        # The same function as one zero-padded conv2d with the 2-D
+        # outer-product kernel, times the reciprocal plane.
+        taps = torch.from_numpy(_taps(sigma)).to(device)
+        weight = torch.outer(taps, taps)[None, None].contiguous()
+        recip = recip_norm(bh, bw, sigma, device)
+
+        def conv2d():
+            return F.conv2d(d1, weight, padding=len(taps) // 2) * recip
+
+        print(f"  conv2d against K6's plain version ({label}): max |difference| "
+              f"{float((conv2d() - want).abs().max()):.3e}")
         return Check(
-            compare(f"K6 blur {label} {b}x{bh}x{bw}", got, blur.blur_batch_plain(d1, sigma),
-                    **KERNEL_TOL),
+            compare(f"K6 blur {label} {b}x{bh}x{bw}", got, want, **EXACT),
             lambda: blur.blur_batch(d1, sigma),
             lambda: blur.blur_batch_plain(d1, sigma),
             2 * nbytes(d1) + bh * bw * 4, blur_ops(sigma) * d1.numel(), f"{bh} px, B={b}",
-            library=lambda: ba._blur(d1, sigma),
+            library=lambda: ba._blur(d1, sigma), others={"conv2d": conv2d},
         )
 
     out["blur"] = k6_check(pi1, "full")
@@ -965,7 +1028,7 @@ def pair_grid_times(k7: list, k8: list, k2: list, label: str) -> None:
     time (CUDA events over 10 calls, host overhead between launches
     included) and the kernel's own device time (profiler)."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
-    from codec_eval_tpu_torch.kernels.cuda import _lib, freqsep, maskac, scale_features
+    from codec_eval_tpu_torch.kernels.cuda import _lib, blur, freqsep, maskac, scale_features
 
     def show(name, shape, blocks, fn, kernel):
         own = own_device_ms(fn, kernel)
@@ -974,8 +1037,9 @@ def pair_grid_times(k7: list, k8: list, k2: list, label: str) -> None:
               f"wrapper {time_ms(fn, 10):.4f} ms, kernel alone {own}")
 
     for d1, b0 in k7:
-        _, h, w = d1.shape
-        show("K7", f"{w} px", -(-w // 64) * -(-h // 32),
+        b, h, w = d1.shape
+        seg = blur.segment_rows(b, h, w, _lib.sm_count(d1.device))
+        show("K7", f"{w} px (segments of {seg} rows)", b * -(-w // _lib.STRIP) * -(-h // seg),
              lambda: maskac.mask_diff_ac_batch(d1, b0, ba._MASK_DIFF_AC_MUL, ba.SIGMA_MASK),
              "mask_diff_ac_kernel")
     for a in k8:
@@ -1516,6 +1580,9 @@ def time_check(label: str, c: Check, own: Optional[str] = None) -> dict:
     lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
     times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": library_ms}
+    for name, fn in c.others.items():
+        times[f"{name}_ms"] = time_ms(fn, 10)
+        lib += f", {name} {times[f'{name}_ms']:.4f} ms"
     if own:
         alone = times["own_device_ms"] = own_device_ms(c.kernel, own)
         lib += f", kernel alone {alone:.4f} ms" if alone else ", kernel alone not measured"
@@ -1622,14 +1689,18 @@ def main() -> int:
     _lib.load()
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s")
     for kernel in PTXAS_KERNELS:
+        shown = True
         for line in _lib.ptxas_report(kernel):
             entry = re.search(r"entry function '\w*?\d((?:malta_\w*?|bands_|scale_features_|"
-                              r"opsin_|candidate_moments_|moments_tile_)kernel)(?:ILi(\d+)E)?",
-                              line)
+                              r"opsin_|candidate_moments_|moments_tile_|blur_|mask_diff_ac_)"
+                              r"kernel)(?:ILi(\d+)E)?", line)
             if entry:
                 arg = f"<{entry.group(2)}>" if entry.group(2) else ""
-                print(f"  ptxas -v, {entry.group(1)}{arg}:")
-            elif "Compile time" not in line and "Function properties" not in line:
+                shown = kernel not in ("blur_kernel", "mask_diff_ac_kernel") or (
+                    int(entry.group(2)) in BLUR_RADII)
+                if shown:
+                    print(f"  ptxas -v, {entry.group(1)}{arg}:")
+            elif shown and "Compile time" not in line and "Function properties" not in line:
                 print(f"    {line}")
     for kernel in SASS_KERNELS:
         sass_summary(kernel)
@@ -1643,6 +1714,7 @@ def main() -> int:
     checks = phase_kernels(ref_u8, candidates(ref_u8, QUALITIES), device)
     check_odd_shapes(device)
     check_ragged_strips(device)
+    check_blur_strips(device)
     done(2, t0)
 
     t0 = time.perf_counter()
@@ -1693,7 +1765,7 @@ def main() -> int:
         if small:
             row["at_2048"] = time_check(f"{name} on the {BIG} px path", big, OWN_TIME.get(name))
         rows.append(row)
-    time_check("blur (half resolution)", k6_half)
+    time_check("blur (half resolution)", k6_half, OWN_TIME["blur"])
     for shapes, fused, unfused in flows:
         f1, u1, u2, f2 = (time_ms(f, 5) for f in (fused, unfused, unfused, fused))
         diff = (fused() - unfused()).abs().max().item()

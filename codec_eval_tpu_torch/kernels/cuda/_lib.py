@@ -58,10 +58,10 @@ SIGNATURES = {
     "ce_malta_ac": (P, P, I, I, I, P),
     # cand6, ref6, cand_rest, ref_rest, dac, masks, out, b, h, w, ch, epi, stream
     "ce_malta_diffmap": (P, P, P, P, P, P, P, I, I, I, P, P, P),
-    # planes, recip, out, n, h, w, taps, ntaps, stream
-    "ce_blur": (P, P, P, I, I, I, P, I, P),
-    # d1, b0, recip, out, b, h, w, taps, ntaps, ac_mul, stream
-    "ce_mask_diff_ac": (P, P, P, P, I, I, I, P, I, F, P),
+    # planes, recip, out, n, h, w, seg, taps, ntaps, stream
+    "ce_blur": (P, P, P, I, I, I, I, P, I, P),
+    # d1, b0, recip, out, b, h, w, seg, taps, ntaps, ac_mul, stream
+    "ce_mask_diff_ac": (P, P, P, P, I, I, I, I, P, I, F, P),
     # x1, x2, out, planes, h, w, walk, seg, taps, stream
     "ce_candidate_moments": (P, P, P, I, I, I, I, I, P, P),
     # x1, out, planes, h, w, walk, seg, taps, stream
@@ -69,8 +69,8 @@ SIGNATURES = {
 }
 
 
-#: Output columns per block of the row-streamed strip kernels, K1, K2, K3
-#: and K9 (``csrc/common.cuh`` ``kStrip``).  Each block also owns a segment of rows,
+#: Output columns per block of the row-streamed strip kernels, K1, K2, K3,
+#: K6, K7 and K9 (``csrc/common.cuh`` ``kStrip``).  Each block also owns a segment of rows,
 #: whose length the kernel's wrapper chooses.
 STRIP = 128
 
@@ -212,3 +212,14 @@ def ptr(t) -> int:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(fn, device: int, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and the current stream
+    of CUDA device ``device`` (an index), and return its ``cudaError_t``.
+    A kernel launches on the current device, so the call enters
+    ``device``'s context only when another device is current."""
+    if device == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -6,17 +6,21 @@ DIR holds another checkout of the repository, such as the parent commit
 unpacked there with ``git archive``.  Its port is imported from its own
 files under the name ``parent_port``, so its wrappers launch the kernels
 that its own build module builds from its own sources (into
-``DIR/build/kernels``).  For each case of ``cases`` (K1, K2 and both forms
-of K9 at the shapes of the batch scorer, the single pair and the masked
-corpus's 512 and 2048 px buckets, on inputs made from a seed) it prints
-the largest difference between the two checkouts' outputs, the mean time
-of 10 calls through each wrapper in turns (parent, change, change, parent;
-CUDA events) and the device time per call of the kernels that each call
+``DIR/build/kernels``).  It first says whether the two libraries hold the
+same machine code (``cuobjdump -sass``) for each kernel of ``SAME_SASS``.
+For each case of ``cases`` (K1, K2 and both forms of K9 at the shapes of
+the batch scorer, the single pair and the masked corpus's 512 and 2048 px
+buckets; K6 at the batch path's 2048 and 1024 px, K7 at B = 1 from 2048
+down to 256 px; on inputs made from a seed) it prints the largest
+difference between the two checkouts' outputs, the mean time of 10 calls
+through each wrapper in turns (parent, change, change, parent; CUDA
+events) and the device time per call of the kernels that each call
 launched (``torch.profiler``).  A wrapper that DIR lacks is timed through
-its stand-in in ``STAND_INS``.  For K2 and K9 it also times this
+its stand-in in ``STAND_INS``.  For K2, K6, K7 and K9 it also times this
 checkout's kernel alone at every segment length and walk, what
-``OPSIN_SEGMENTS``, ``SEGMENTS`` and ``TILE_MAX_WORK`` were chosen from.  The last line of the
-output is a JSON list of every row.  It needs a CUDA device.
+``OPSIN_SEGMENTS``, ``blur.SEGMENTS``, ``moments.SEGMENTS`` and
+``TILE_MAX_WORK`` were chosen from.  The last line of the output is a JSON
+list of every row.  It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import functools
 import importlib
 import importlib.util
 import json
+import re
+import subprocess
 import sys
 from pathlib import Path
 
@@ -41,6 +47,11 @@ CALLS = 10
 STAND_INS = {
     "reference_moments": ("candidate_moments", lambda x1: (x1, x1), lambda out: out[:2]),
 }
+
+
+#: Kernels whose machine code a change of a shared header must leave as it
+#: was: K1's and K9's, on the strip walk that K6 and K7 now share.
+SAME_SASS = ("scale_features_kernel", "candidate_moments_kernel", "moments_tile_kernel")
 
 
 def _uniform(rng, shape, scale, device) -> torch.Tensor:
@@ -83,6 +94,28 @@ def _moments(n: int, side: int, inputs: int, device):
     return f"{side}x{side}, N={n}", make
 
 
+def _blur(b: int, side: int, device):
+    from ..butteraugli import SIGMA_MASK
+
+    def make():
+        rng = np.random.default_rng(SEED)
+        return [(_uniform(rng, (b, 1, side, side), 10.0, device), SIGMA_MASK)]
+
+    return f"{side} px, B={b}", make
+
+
+def _mask(side: int, device):
+    from ..butteraugli import _MASK_DIFF_AC_MUL, SIGMA_MASK
+
+    def make():
+        rng = np.random.default_rng(SEED)
+        d1 = _uniform(rng, (1, side, side), 10.0, device)
+        b0 = _uniform(rng, (side, side), 10.0, device)
+        return [(d1, b0, _MASK_DIFF_AC_MUL, SIGMA_MASK)]
+
+    return f"{side} px, B=1", make
+
+
 def cases(device) -> dict:
     """{wrapper name: [(label, make)]}: ``make()`` gives the argument
     tuples of one call, each passed to the wrapper in turn."""
@@ -94,6 +127,8 @@ def cases(device) -> dict:
         "scale_features": [_features(25, 512, device), _features(10, 2048, device)],
         "candidate_moments": [_moments(n, side, 2, device) for n, side in masked],
         "reference_moments": [_moments(n, side, 1, device) for n, side in masked],
+        "blur": [_blur(10, side, device) for side in (2048, 1024)],
+        "mask_diff_ac": [_mask(side, device) for side in (2048, 1024, 512, 256)],
     }
 
 
@@ -169,11 +204,16 @@ def device_ms(fn, per_call: int) -> float | None:
 
 
 def sweep(name: str, calls: list) -> dict:
-    """This checkout's K2 or K9 kernel alone at every segment length of its
-    strip walk (and K9's tile walk) on one call's arguments."""
-    from . import freqsep, moments
+    """This checkout's K2, K6, K7 or K9 kernel alone at every segment
+    length of its strip walk (and K9's tile walk) on one call's
+    arguments."""
+    from . import blur, freqsep, maskac, moments
 
     (args,) = calls
+    if name in ("blur", "mask_diff_ac"):
+        launch = blur._launch if name == "blur" else maskac._launch
+        return {f"{seg} rows": device_ms(functools.partial(launch, *args, seg=seg), 1)
+                for seg in blur.SEGMENTS}
     if name == "opsin_xyb":
         return {f"{seg} rows": device_ms(functools.partial(freqsep._opsin_launch, *args, seg), 1)
                 for seg in freqsep.OPSIN_SEGMENTS}
@@ -187,6 +227,40 @@ def sweep(name: str, calls: list) -> dict:
 
 def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
+
+
+def sass(library: Path, kernel: str) -> list:
+    """The instructions of each function of a built library whose name
+    contains ``kernel`` (``cuobjdump -sass``, addresses and encodings
+    dropped), in name order.  The names themselves carry a hash of the
+    source's path, so they are left out."""
+    from . import _lib
+
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out = []
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name, rest = body.split("\n", 1)
+        if kernel in name:
+            out.append((re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", name.strip()),
+                        re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", rest)))
+    return [code for _, code in sorted(out)]
+
+
+def same_sass(parent) -> dict:
+    """{kernel: whether both checkouts' libraries compile each of its
+    functions to the same instructions} for the kernels of ``SAME_SASS``."""
+    from . import _lib
+
+    out = {}
+    for kernel in SAME_SASS:
+        old, new = sass(parent._lib.library_path(), kernel), sass(_lib.library_path(), kernel)
+        out[kernel] = bool(new) and old == new
+        print(f"{kernel}: {len(new)} functions, {sum(map(len, new))} instructions, "
+              f"{'the same machine code as' if out[kernel] else 'other machine code than'} "
+              f"the parent's ({sum(map(len, old))} instructions)")
+    return out
 
 
 def compare(parent) -> list:
@@ -215,7 +289,8 @@ def compare(parent) -> list:
                    "ms": (n1 + n2) / 2, "parent_ms": (p1 + p2) / 2,
                    "alone_ms": device_ms(new_call, launches_per_call(new_call, change)),
                    "parent_alone_ms": device_ms(old_call, launches_per_call(old_call, parent))}
-            if name in ("opsin_xyb", "candidate_moments", "reference_moments"):
+            if name in ("opsin_xyb", "candidate_moments", "reference_moments", "blur",
+                        "mask_diff_ac"):
                 row["alone_ms_by_walk"] = sweep(name, calls)
             walks = row.get("alone_ms_by_walk", {})
             print(f"{name} {label}: change {row['ms']:.4f} ms (alone {_ms(row['alone_ms'])}), "
@@ -236,8 +311,10 @@ def main(argv: list) -> int:
         return 2
     parent = load_checkout(Path(argv[0]).resolve())
     parent._lib.load()  # built before anything is timed
+    importlib.import_module(__package__)._lib.load()
+    sass_rows = [{"kernel": k, "same_sass": v} for k, v in same_sass(parent).items()]
     rows = compare(parent)
-    print(json.dumps(rows))
+    print(json.dumps(sass_rows + rows))
     return 0
 
 

@@ -19,7 +19,14 @@ wrapper chooses.  No ``nvcc`` or card is needed to check that:
 - the radii and strip widths compiled into the sources equal the taps the
   wrappers pass (``_taps(SIGMA_SURROUND)``, ``_taps(SIGMA_MF)``,
   ``_taps(SIGMA_UHF)``, ``gaussian_taps(1.5)``) and ``_lib.STRIP``;
-- K1's wrapper leaves the sums and norms to the kernel.
+- K1's wrapper leaves the sums and norms to the kernel;
+- K6 and K7 (``csrc/blur.cu``), on the same walk at the blur's radius:
+  their blocks cover every output once, every row of a segment is made
+  once at radii 1 to 16, their segments fill the card on the path and
+  depend on the launch only, a numpy model of their walk equals the plain
+  versions bit for bit at every segment length and radius, the radii
+  compiled into the source cover the wrappers' taps, and the wrappers
+  refuse bad arguments before touching the library.
 """
 
 import inspect
@@ -30,8 +37,11 @@ import pytest
 import torch
 
 from codec_eval_tpu.kernels.ssimulacra2 import NUM_SCALES
+from codec_eval_tpu_torch.kernels import butteraugli as tba
 from codec_eval_tpu_torch.kernels.cuda import _lib
+from codec_eval_tpu_torch.kernels.cuda import blur as tbl
 from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
+from codec_eval_tpu_torch.kernels.cuda import maskac as tmk
 from codec_eval_tpu_torch.kernels.cuda import moments as tmo
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
 
@@ -461,3 +471,242 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert torch.equal(tsf.scale_features(xyb1, mu1, s11, xyb2[1]),
                        tsf.scale_features_plain(xyb1, mu1, s11, xyb2[1]))
     assert (tsf.scale_features_batch.launches, tsf.scale_features.launches) == before
+
+
+# ------------------------------------------------ K6 and K7 on the strip walk
+#
+# K6 (``blur_kernel``) and K7 (``mask_diff_ac_kernel``) in ``csrc/blur.cu``
+# run the walk of ``moments.cuh`` at the blur's radius (form kBlur): the
+# block order of K9's strip walk (strip fastest, then plane, then segment),
+# the segment chosen by ``blur.segment_rows`` from the launch alone.
+
+BLUR_KERNELS = [("K6", 1), ("K6", 3), ("K7", 1)]  # (kernel, channels per image)
+BLUR_RADII = [1, 6, 7, 16]
+
+
+def blur_source() -> str:
+    return (_lib.CSRC / "blur.cu").read_text()
+
+
+@pytest.mark.parametrize("b", [1, 2, 10, 25])
+@pytest.mark.parametrize("shape", LAYOUT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kernel, channels", BLUR_KERNELS, ids=lambda k: str(k))
+def test_blur_blocks_cover_each_pixel_once(kernel, channels, shape, b):
+    h, w = shape
+    planes = b * channels
+    seg = tbl.segment_rows(planes, h, w, H100_SMS)
+    assert seg in tbl.SEGMENTS
+    assert_planes_covered(moments_tiles(planes, h, w, tmo.STRIP_WALK, seg), planes, h, w, seg,
+                          _lib.STRIP)
+
+
+def test_blur_kernels_decode_blocks_as_the_strip_walk():
+    """One block per (strip, plane, segment), strip fastest: the decode that
+    ``moments_tiles`` models, and a grid of exactly that many blocks."""
+    src = blur_source()
+    for line in ("const int strip = blockIdx.x % strips;",
+                 "const int p = blockIdx.x / strips % planes;",
+                 "const int segment = blockIdx.x / strips / planes;",
+                 "const int x0 = strip * ce::kStrip, y0 = segment * seg;"):
+        assert line in src
+    assert ("(long long)planes * ((w + ce::kStrip - 1) / ce::kStrip) *\n"
+            "                           ((h + seg - 1) / seg);") in src
+    assert src.count("strip_walk<kBlur>(") == 1  # K6 and K7 share one block body
+
+
+@pytest.mark.parametrize("seg", tbl.SEGMENTS)
+@pytest.mark.parametrize("radius", BLUR_RADII)
+def test_blur_walk_completes_each_row_of_a_segment_once(radius, seg):
+    """The walk at radius R (groups of RG rows): every row of every segment
+    once, in order, for ragged heights."""
+    rg = constant("moments.cuh", "RG")
+    for h in (8, 37, 261, 300):
+        for y0 in range(0, h, seg):
+            assert group_steps(radius, rg, seg, h, y0) == list(range(y0, min(y0 + seg, h)))
+
+
+#: The launches of the path: K6 on the batch path's 2048 and 1024 px masks
+#: (B = 10), K7 on one pair at 2048, 1024, 512 and 256 px.
+BLUR_PATH_LAUNCHES = [(10, 2048, 2048), (10, 1024, 1024), (1, 2048, 2048), (1, 1024, 1024),
+                      (1, 512, 512), (1, 256, 256)]
+
+
+@pytest.mark.parametrize("planes, h, w", BLUR_PATH_LAUNCHES, ids=lambda v: str(v))
+def test_blur_segments_fill_the_card_on_the_path(planes, h, w):
+    """Each launch of the path takes the longest segment whose grid gives
+    every SM MIN_BLOCKS_PER_SM blocks, or the shortest segment where none
+    does (one 256 px plane: 128 blocks of 4 rows)."""
+    seg = tbl.segment_rows(planes, h, w, H100_SMS)
+    min_blocks = tbl.MIN_BLOCKS_PER_SM * H100_SMS
+
+    def blocks(rows):
+        return len(moments_tiles(planes, h, w, tmo.STRIP_WALK, rows))
+
+    assert seg == tbl.SEGMENTS[-1] or blocks(seg) >= min_blocks
+    assert all(blocks(r) < min_blocks for r in tbl.SEGMENTS if r > seg)
+
+
+def test_blur_segments_of_the_path():
+    """The choices measured on the card: K6's 2048 and 1024 px batches of
+    10 take 256- and 128-row segments; one image (K7) takes 64 rows at
+    2048 px down to 4 at 512 and 256 px, and from 512 px up its grid gives
+    every SM at least two blocks."""
+    assert tbl.MIN_BLOCKS_PER_SM >= 2
+    want = {(10, 2048, 2048): 256, (10, 1024, 1024): 128, (1, 2048, 2048): 64,
+            (1, 1024, 1024): 16, (1, 512, 512): 4, (1, 256, 256): 4}
+    assert {launch: tbl.segment_rows(*launch, H100_SMS) for launch in want} == want
+    for planes, h, w in ((1, 2048, 2048), (1, 1024, 1024), (1, 512, 512)):
+        seg = tbl.segment_rows(planes, h, w, H100_SMS)
+        assert len(moments_tiles(planes, h, w, tmo.STRIP_WALK, seg)) >= 2 * H100_SMS
+
+
+def test_blur_segments_depend_on_the_launch_only():
+    assert list(inspect.signature(tbl.segment_rows).parameters) == ["planes", "h", "w", "sms"]
+    assert "_lib.segment_rows(" in inspect.getsource(tbl.segment_rows)
+    assert list(tbl.SEGMENTS) == sorted(tbl.SEGMENTS, reverse=True) and tbl.SEGMENTS[-1] >= 1
+    for planes, h, w in ((10, 2048, 2048), (1, 512, 512), (2, 261, 131), (75, 1365, 2048)):
+        assert tbl.segment_rows(planes, h, w, H100_SMS) == _lib.segment_rows(
+            planes * -(-w // _lib.STRIP), h, tbl.SEGMENTS, tbl.MIN_BLOCKS_PER_SM, H100_SMS)
+    # The wrappers take it from the plan of the launch: planes, h, w, sigma, device.
+    assert list(inspect.signature(tbl.plan).parameters) == [
+        "entry", "planes", "h", "w", "sigma", "device"]
+    for fn in (tbl._launch, tmk._launch):
+        assert "plan(" in inspect.getsource(fn)
+
+
+def compiled_blur_radii() -> list:
+    block = re.search(r"#define CE_RADIUS_CASES\(CALL\)(.*?)return \(int\)cudaErrorInvalidValue;",
+                      blur_source(), re.S)
+    assert block
+    cases = [int(c) for c in re.findall(r"case (\d+): return \(int\)CALL\(\1\);", block.group(1))]
+    assert cases and cases == sorted(set(cases))
+    return cases
+
+
+@pytest.mark.parametrize("sigma", [0.5, tba.SIGMA_MASK, tba.SIGMA_LF])
+def test_compiled_blur_radii_equal_the_wrappers_taps(sigma):
+    """K6 and K7 are instantiated at every radius 1..16; the path's sigma
+    2.7 takes radius 6 and the largest sigma the kernel takes (7.16, the LF
+    blur) radius 16, which the walk's static_asserts admit."""
+    radii = compiled_blur_radii()
+    assert radii == list(range(1, constant("blur.cu", "kMaxRadius") + 1))
+    assert 2 * radii[-1] + 1 == tbl.MAX_TAPS
+    assert len(tbl._host_taps(sigma)) // 2 in radii
+    assert len(tbl._host_taps(tba.SIGMA_MASK)) == 2 * 6 + 1
+
+
+def test_radius_16_meets_the_walks_static_asserts():
+    src = (_lib.CSRC / "moments.cuh").read_text()
+    assert "static constexpr int G = kStrip + 2 * RAD;" in src
+    assert "static_assert(RAD >= 1 && G <= kStripThreads && G <= QUAD * kQuarter, \"\");" in src
+    assert "static_assert(Radius<kMaxRadius>::G <= ce::kStripThreads" in blur_source()
+    grown = constant("common.cuh", "kStrip") + 2 * constant("blur.cu", "kMaxRadius")
+    assert grown <= constant("common.cuh", "kStripThreads")
+    assert grown <= constant("moments.cuh", "QUAD") * constant("moments.cuh", "kQuarter")
+    # K1 and K9 keep radius 7.
+    assert constant("moments.cuh", "R") == 7
+    assert "template <int FORM, int RAD = R>\nstruct StripSmem" in src
+
+
+def blur_walk_model(x: np.ndarray, sigma: float, seg: int) -> np.ndarray:
+    """K6's strip walk on one (h, w) plane, in numpy f32: per block the
+    steps and row groups, each grown column's window of 2R + 1 input rows,
+    the horizontal pass at the block's outputs, times the reciprocal plane."""
+    taps = [np.float32(t) for t in tbl._host_taps(sigma)]
+    k = len(taps)
+    r, rg, strip = k // 2, constant("moments.cuh", "RG"), _lib.STRIP
+    h, w = x.shape
+    recip = tfs._recip_norm_np(h, w, sigma)
+    out = np.full((h, w), np.nan, np.float32)
+
+    def fir(v, n):
+        """n outputs along axis 0 of (k + n - 1, ...), taps in order."""
+        acc = taps[0] * v[0:n]
+        for i in range(1, k):
+            acc = acc + taps[i] * v[i : i + n]
+        return acc
+
+    for y0 in range(0, h, seg):
+        y_end = min(y0 + seg, h)
+        for x0 in range(0, w, strip):
+            x_end = min(x0 + strip, w)
+            gx = x0 - r + np.arange(strip + 2 * r)
+            col_in = (gx >= 0) & (gx < w)
+            src = np.clip(gx, 0, w - 1)
+            win = np.zeros((k, strip + 2 * r), np.float32)
+            for s in range(-(-(seg + 2 * r) // rg) * rg):
+                row = y0 - r + s
+                win[:-1] = win[1:]
+                win[-1] = np.where(col_in & (0 <= row < h), x[min(max(row, 0), h - 1), src],
+                                   np.float32(0))
+                y = y0 - 2 * r + s
+                if y0 <= y < y_end:
+                    v = fir(win, 1)[0]
+                    out[y, x0:x_end] = fir(v, strip)[: x_end - x0] * recip[y, x0:x_end]
+    return out
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (70, 150)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sigma", [0.5, tba.SIGMA_MASK, tba.SIGMA_LF])
+def test_blur_values_do_not_depend_on_the_segment(sigma, shape):
+    """The walk gives K6's plain version bit for bit at every segment
+    length, and K7's mask term on it is K7's plain version."""
+    rng = np.random.default_rng(sum(shape) + int(10 * sigma))
+    x = (rng.random((2,) + shape, dtype=np.float32) * 10).astype(np.float32)
+    b0 = torch.from_numpy(rng.random(shape, dtype=np.float32) * 10)
+    want = tbl.blur_batch_plain(torch.from_numpy(x)[:, None], sigma)[:, 0]
+    mask = tmk.mask_diff_ac_plain(torch.from_numpy(x), b0, tba._MASK_DIFF_AC_MUL, sigma)
+    for seg in tbl.SEGMENTS:
+        got = torch.from_numpy(np.stack([blur_walk_model(p, sigma, seg) for p in x]))
+        assert torch.equal(got, want), seg
+        d = b0 - got
+        assert torch.equal((tba._MASK_DIFF_AC_MUL * d) * d, mask), seg
+
+
+class FakeCuda:
+    """A tensor that claims to lie on the first CUDA device."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, shape, dtype=torch.float32, contiguous=True):
+        self.shape, self.dtype, self._contiguous = torch.Size(shape), dtype, contiguous
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return self._contiguous
+
+    def get_device(self):
+        return 0
+
+
+@pytest.mark.parametrize("call, error, match", [
+    (lambda: tbl.blur_batch(FakeCuda((2, 16, 16)), 2.7), ValueError, "shape"),
+    (lambda: tbl.blur_batch(FakeCuda((2, 1, 16, 16), torch.float64), 2.7), TypeError, "float32"),
+    (lambda: tbl.blur_batch(FakeCuda((2, 1, 16, 16), contiguous=False), 2.7), ValueError,
+     "contiguous"),
+    (lambda: tbl.blur_batch(FakeCuda((2, 1, 16, 16)), 7.6), ValueError, "at most 33 taps"),
+    (lambda: tmk.mask_diff_ac_batch(FakeCuda((1, 16, 16)), FakeCuda((16, 17)), 1.0),
+     ValueError, "shape"),
+    (lambda: tmk.mask_diff_ac_batch(FakeCuda((16, 16)), FakeCuda((16, 16)), 1.0), ValueError,
+     "shape"),
+    (lambda: tmk.mask_diff_ac_batch(FakeCuda((1, 16, 16), torch.float16), FakeCuda((16, 16)),
+                                    1.0), TypeError, "float32"),
+    (lambda: tmk.mask_diff_ac_batch(FakeCuda((1, 16, 16)), torch.empty(16, 16, device="meta"),
+                                    1.0), ValueError, "CUDA"),
+    (lambda: tmk.mask_diff_ac_batch(FakeCuda((1, 16, 16)), FakeCuda((16, 16)), 1.0, 16.0),
+     ValueError, "at most 33 taps"),
+], ids=["k6-rank", "k6-dtype", "k6-layout", "k6-taps", "k7-b0-shape", "k7-rank", "k7-dtype",
+        "k7-b0-device", "k7-taps"])
+def test_blur_wrappers_refuse_bad_arguments(monkeypatch, call, error, match):
+    """Each check raises before the library is built or loaded, and no
+    launch is counted."""
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(_lib, "load", no_library)
+    before = (tbl.blur_batch.launches, tmk.mask_diff_ac_batch.launches)
+    with pytest.raises(error, match=match):
+        call()
+    assert (tbl.blur_batch.launches, tmk.mask_diff_ac_batch.launches) == before
