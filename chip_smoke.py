@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8/K2 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and then runs eight phases,
+``nvcc`` (one process per source, in parallel) and then runs nine phases,
 each failing loudly:
 
 1. device: the card's name and power limit, the kernels' build time, the
@@ -66,7 +66,20 @@ each failing loudly:
    shapes; K9 timed at every scale of the first two in both forms, through
    the wrapper and alone, beside its bound; K9 timed against its plain
    version and a grouped ``conv2d``; the corpus's wall time, pairs/s and
-   peak device memory.
+   peak device memory;
+9. the crate-root surface with no ``device``: ``evaluate_single`` on phase
+   3's q5, q50 and q100 and phase 5's q50 and q95, held to the batch
+   scorer's scores (the same route at B = 1), with the launches of one
+   call at each size read (those of one ``score_batch``: K1-K4 at 512 px,
+   K1-K6 at 2048 px, never K7-K9) and each size timed per call; ``assert_quality`` raising below its threshold
+   and passing above it, ``assert_perception_level`` on an identical pair;
+   ``simulate_viewing`` at 2048 -> 1024, 512 -> 1024 and 512 -> 683 against
+   the host's resize (at most one code value), the 2048 -> 1024 resize
+   timed; ``evaluate_single`` with viewing simulation against ``score_pair``
+   of the resized pair; K1-K6 against their plain versions at B = 1 at the
+   2048 px call's shapes, and K1-K4 at the 512 px call's; and the stats
+   layer on phase 3's ladder (a Pareto front, ``bd_rate`` against itself,
+   ``find_knee``, an SVG chart).
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
 per size; K7, K8 and K2 launch by launch on one pair at each size (the
@@ -83,6 +96,7 @@ repository, it exits non-zero and prints none of them.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import re
 import statistics
@@ -474,7 +488,7 @@ def phase_kernels(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device
     not take K5, K1 at all six SSIMULACRA2 scales.  Each check is timed and
     bounded on the candidates at the first resolution it runs at."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
-    from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
+    s2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
     from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
     from codec_eval_tpu_torch.kernels.cuda import freqsep, malta, scale_features
 
@@ -707,8 +721,8 @@ def phase_slice(
     monotonicity of the scores, that every kernel but those in ``idle``
     launched and those did not, and the card's scores at ``picks`` against
     the host's; times one ``score_batch`` of the whole ladder.  Returns
-    each kernel's launch count during the sweep and the report's scores by
-    quality."""
+    each kernel's launch count during the sweep, the report's scores by
+    quality and its bits per pixel by quality."""
     import codec_eval_tpu_torch as ce
 
     def decode(data):
@@ -734,6 +748,7 @@ def phase_slice(
     if len(written["results"]) != len(qualities):
         raise AssertionError("the report does not hold one row per quality")
     rows = {r.quality: r.metrics for r in report.results}
+    bpp = {r.quality: r.bits_per_pixel for r in report.results}
     metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
     values = np.array([[getattr(rows[q], m) for m in metrics] for q in qualities], np.float64)
     if values.shape != (len(qualities), 4) or not np.isfinite(values).all():
@@ -786,7 +801,7 @@ def phase_slice(
         f"({[round(t * 1e3, 3) for t in times]}), {len(batch) / med:.2f} pairs/s, "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
     )
-    return launches, rows
+    return launches, rows, bpp
 
 
 def phase_kernels_big(ref_u8: np.ndarray, cands_u8: np.ndarray, device: torch.device):
@@ -921,7 +936,7 @@ def expected_pair_launches(side: int, pairs: int) -> dict:
     resolution and K5 or K4 as the size route gives; per SSIMULACRA2 call,
     K8 once per scale; nothing else."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
-    from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
+    s2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
     from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
 
     fused = sum(ba._fused_diffmap_ok(n, n) for n in (side, (side + 1) // 2))
@@ -953,7 +968,7 @@ def pair_kernel_inputs(ref_u8: np.ndarray, dist_u8: np.ndarray, device) -> tuple
     full and half resolution, K8's four planes at every SSIMULACRA2 scale,
     and K2's (label, args) for the candidate at B = 1 at both resolutions."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
-    from codec_eval_tpu_torch.kernels import ssimulacra2 as s2
+    s2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
     from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
 
     ref = torch.from_numpy(ref_u8).to(device)
@@ -1671,6 +1686,180 @@ def profile_pairs(ref_u8: np.ndarray, dist_u8: np.ndarray) -> None:
               f"{sum(e.count for e in on_device)} device operations")
 
 
+# ------------------------------------- phase 9: the crate-root surface
+
+
+def viewing_cases() -> list:
+    """(label, image side, SimulationParams) of the three viewing resizes:
+    2048 -> 1024 (browser 2 dppx, image 1 dppx), 512 -> 1024 (the reverse)
+    and 512 -> 683 (a 2x srcset on a 1.5x laptop, ratio 4/3)."""
+    import codec_eval_tpu_torch as ce
+
+    accurate = ce.SimulationMode.ACCURATE
+    down = ce.ViewingCondition.desktop().with_browser_dppx(2.0).with_image_intrinsic_dppx(1.0)
+    up = ce.ViewingCondition.desktop().with_browser_dppx(1.0).with_image_intrinsic_dppx(2.0)
+    odd = ce.presets.srcset_2x_on_laptop_1_5x()
+    return [
+        (f"{BIG} -> {BIG // 2}", BIG, down.simulation_params(BIG, BIG, accurate)),
+        (f"{SIZE} -> {2 * SIZE}", SIZE, up.simulation_params(SIZE, SIZE, accurate)),
+        (f"{SIZE} -> {round(SIZE * 4 / 3)}", SIZE, odd.simulation_params(SIZE, SIZE, accurate)),
+    ]
+
+
+def phase_root(ref_u8: np.ndarray, rows_512: dict, bpp_512: dict, launches_512: dict,
+               big_u8: np.ndarray, big_batch: np.ndarray, big_rows: dict, launches_big: dict,
+               device) -> dict:
+    """Phase 9: the crate-root helpers a user calls, with no ``device``.
+    ``evaluate_single`` held to the batch scorer's scores of phases 3 and 5
+    with the launches of one call at each size read; the CI gates; the viewing
+    resize on the card against the host; ``evaluate_single`` with viewing
+    simulation against ``score_pair`` of the resized pair; K1-K6 against
+    their plain versions at B = 1 at the 2048 px call's shapes, and K1-K4 at
+    the 512 px call's; the stats
+    layer on phase 3's scores.  Returns the launches of the calls at each
+    size, K1-K6's errors at B = 1 and the figures PERF.md records."""
+    import codec_eval_tpu_torch as ce
+    from codec_eval_tpu_torch import stats
+    from codec_eval_tpu_torch.kernels.resize import resize_u8
+
+    config = ce.MetricConfig.all()
+    metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
+    figures = {}
+
+    def held_to(label, got, want):
+        worst = 0.0
+        for m in metrics:
+            g, w = getattr(got, m), getattr(want, m)
+            rel = rel_diff(g, w)
+            worst = max(worst, rel)
+            if not rel <= PAIR_VS_BATCH_RTOL:
+                raise AssertionError(f"{label} {m}: evaluate_single {g!r} vs {w!r}")
+        return worst
+
+    # evaluate_single on the card by default, against the batch scores.
+    small = dict(zip(PAIR_PICKS, candidates(ref_u8, PAIR_PICKS)))
+    big = {q: big_batch[BIG_QUALITIES.index(q)] for q in BIG_PICKS}
+    for image, cands, rows in ((ref_u8, small, rows_512), (big_u8, big, big_rows)):
+        side = image.shape[0]
+        worst = 0.0
+        for q, cand in cands.items():
+            got = ce.evaluate_single(image, cand, config)
+            worst = max(worst, held_to(f"{side}px q{q}", got, rows[q]))
+        print(f"  evaluate_single at {side}px, q{list(cands)}: largest relative difference "
+              f"to score_batch {worst:.3e}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ce.evaluate_single(image, cands[50], config)
+            times.append(time.perf_counter() - t0)
+        figures[f"evaluate_single_ms_{side}"] = statistics.median(times) * 1e3
+        print(f"  evaluate_single at {side}px: median {statistics.median(times) * 1e3:.3f} ms "
+              f"of 5 per call ({[round(t * 1e3, 3) for t in times]})")
+    reset_launches()
+    ce.evaluate_single(ref_u8, small[50], config)
+    launches_small = read_launches()
+    check_launches(f"of one evaluate_single at {SIZE}px (those of one score_batch)",
+                   launches_small, launches_512)
+    reset_launches()
+    ce.evaluate_single(big_u8, big[50], config)
+    launches = read_launches()
+    check_launches(f"of one evaluate_single at {BIG}px (those of one score_batch)", launches,
+                   launches_big)
+    idle = PAIR_ONLY | MASKED_ONLY
+    if any(launches[k] for k in idle) or not all(launches[k] for k in launches if k not in idle):
+        raise AssertionError(f"evaluate_single at {BIG}px: K1-K6 must launch, K7-K9 not")
+
+    # The CI gates on the card.
+    q5, q100 = rows_512[5].ssimulacra2, rows_512[100].ssimulacra2
+    gate = q5 + 1.0
+    if not gate < q100:
+        raise AssertionError(f"no gate between q5 ({q5}) and q100 ({q100})")
+    try:
+        ce.assert_quality(ref_u8, small[5], min_ssimulacra2=gate)
+    except ce.QualityBelowThreshold as e:
+        print(f"  assert_quality(q5, min_ssimulacra2={gate:.4f}) raised: {e}")
+        if e.metric != "SSIMULACRA2" or rel_diff(e.value, q5) > PAIR_VS_BATCH_RTOL:
+            raise AssertionError(f"the gate raised for another value: {e}") from None
+    else:
+        raise AssertionError("assert_quality did not raise below its threshold")
+    ce.assert_quality(ref_u8, small[100], min_ssimulacra2=gate)
+    ce.assert_perception_level(ref_u8, ref_u8.copy(), ce.PerceptionLevel.IMPERCEPTIBLE)
+    print("  assert_quality(q100) and assert_perception_level(ref, ref, IMPERCEPTIBLE) passed")
+
+    # The viewing resize on the card against the host's.
+    cases = viewing_cases()
+    for label, side, p in cases:
+        image = ref_u8 if side == SIZE else big_u8
+        card = ce.viewing.simulate_viewing(image, p)
+        host = ce.viewing.simulate_viewing(image, p, device="cpu")
+        diff = np.abs(card.astype(np.int16) - host.astype(np.int16))
+        print(f"  simulate_viewing {label} ({card.shape[1]}x{card.shape[0]}): card against "
+              f"host max {int(diff.max())} code value, {int((diff > 0).sum())} of {diff.size} "
+              f"samples differ")
+        if card.shape != (p.target_height, p.target_width, 3) or diff.max() > 1:
+            raise AssertionError(f"simulate_viewing {label}: card and host differ")
+    down = cases[0][2]
+    on_card = torch.from_numpy(big_u8).to(device)
+    ms = time_ms(lambda: resize_u8(on_card, down.target_height, down.target_width), 10)
+    figures["resize_ms_2048_to_1024"] = ms
+    print(f"  resize_u8 {BIG} -> {BIG // 2} on the card: {ms:.4f} ms (CUDA events, mean of 10, "
+          f"u8 in and out, on the card)")
+
+    # evaluate_single with viewing simulation adds nothing but the resize.
+    got = ce.evaluate_single(big_u8, big[50], config, viewing_simulation=down)
+    resized = [ce.viewing.simulate_viewing(i, down) for i in (big_u8, big[50])]
+    want = ce.BatchScorer(config).score_pair(*resized)
+    worst = held_to(f"{BIG}px q50 viewed at {BIG // 2}", got, want)
+    print(f"  evaluate_single with viewing simulation ({BIG} -> {BIG // 2}), q50: {got}; "
+          f"largest relative difference to score_pair of the resized pair {worst:.3e}")
+
+    # K1-K6 against their plain versions at the shapes of the 2048 px call,
+    # and K1-K4 at those of the 512 px call (no K5 or K6 there).
+    print(f"  K1-K6 against their plain versions at B=1, {BIG} px (evaluate_single's shapes)")
+    one = big_batch[BIG_QUALITIES.index(50)][None]
+    checks = phase_kernels(big_u8, one, device)
+    k56, k6_half, _ = phase_kernels_big(big_u8, one, device)
+    errors = {name: c.err for name, c in {**checks, **k56}.items()}
+    errors["blur"] = max(errors["blur"], k6_half.err)
+    del checks, k56, k6_half
+    print(f"  K1-K4 against their plain versions at B=1, {SIZE} px (evaluate_single's shapes)")
+    for name, c in phase_kernels(ref_u8, small[50][None], device).items():
+        errors[name] = max(errors[name], c.err)
+
+    # The stats layer on the card's scores: phase 3's ladder.
+    ladder = [stats.RDPoint("dct-q", q, bpp_512[q], rows_512[q].ssimulacra2) for q in QUALITIES]
+    front = stats.ParetoFront.compute(ladder)
+    curve = [(p.bpp, p.quality) for p in sorted(ladder, key=lambda p: p.bpp)]
+    bd = stats.bd_rate(curve, curve)
+    if bd is None or abs(bd) > 1e-9:
+        raise AssertionError(f"bd_rate of the ladder against itself is {bd}")
+    rd = sorted((bpp_512[q], rows_512[q].ssimulacra2, rows_512[q].butteraugli) for q in QUALITIES)
+    bpps, s2s = [c[0] for c in rd], [c[1] for c in rd]
+    norm = stats.NormalizationContext(stats.AxisRange(min(bpps), max(bpps)),
+                                      stats.AxisRange(min(s2s), max(s2s)),
+                                      stats.QualityDirection.HIGHER_IS_BETTER)
+    knee = stats.find_knee(rd, norm, lambda c: c[1], stats.WEB_FRAME.s2_angle)
+    if knee is None or not (min(bpps) <= knee.bpp <= max(bpps)):
+        raise AssertionError(f"no knee on the ladder: {knee}")
+    series = [stats.ChartSeries("dct-q", "#e74c3c", [
+        stats.ChartPoint(bpp_512[q], rows_512[q].ssimulacra2, f"q{q}") for q in QUALITIES])]
+    svg = stats.generate_svg(series, stats.ChartConfig.new("SSIMULACRA2 vs bpp, 512 px")
+                             .with_x_label("bpp").with_y_label("SSIMULACRA2"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ladder.svg"
+        path.write_text(svg)
+        written = path.read_text()
+    if not (written.startswith("<svg") and "polyline" in written and "dct-q" in written):
+        raise AssertionError("generate_svg wrote no chart")
+    print(f"  stats: Pareto front of {len(front)} of {len(ladder)} points; bd_rate of the "
+          f"ladder against itself {bd!r}; knee at {knee.bpp:.4f} bpp, SSIMULACRA2 "
+          f"{knee.quality:.4f}, {knee.fixed_angle:.2f} deg in the web frame; SVG of "
+          f"{len(written)} characters")
+    figures.update(front_points=len(front), knee_bpp=knee.bpp, knee_ssimulacra2=knee.quality)
+    return {"launches": launches, "launches_512": launches_small, "errors": errors,
+            "figures": figures}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1720,9 +1909,9 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"[3] EvalSession sweep on {device}: {len(QUALITIES)} qualities at {SIZE}px")
     with tempfile.TemporaryDirectory() as tmp:
-        launches, rows_512 = phase_slice(ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
-                                         idle={"malta_diffmap", "blur", *PAIR_ONLY,
-                                               *MASKED_ONLY})
+        launches, rows_512, bpp_512 = phase_slice(
+            ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
+            idle={"malta_diffmap", "blur", *PAIR_ONLY, *MASKED_ONLY})
     done(3, t0)
 
     t0 = time.perf_counter()
@@ -1735,8 +1924,8 @@ def main() -> int:
     print(f"[5] EvalSession sweep with the default device: {len(BIG_QUALITIES)} qualities "
           f"at {BIG}px")
     with tempfile.TemporaryDirectory() as tmp:
-        launches_big, big_rows = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp), None,
-                                             idle=PAIR_ONLY | MASKED_ONLY)
+        launches_big, big_rows, _ = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp),
+                                                None, idle=PAIR_ONLY | MASKED_ONLY)
     big_batch = candidates(big_u8, BIG_QUALITIES)
     print(f"  kernels vs plain on the {BIG} px sweep's inputs")
     checks_big = phase_kernels(big_u8, big_batch, device)
@@ -1809,6 +1998,21 @@ def main() -> int:
     k4_row.update(k4_extra)
     rows.extend(k9_rows)
     done(8, t0)
+
+    t0 = time.perf_counter()
+    print(f"[9] the crate-root surface, no device given | {card}")
+    root = phase_root(ref_u8, rows_512, bpp_512, launches, big_u8, big_batch, big_rows,
+                      launches_big, device)
+    for row in rows:
+        name = row["name"]
+        row["launches_evaluate_single_512"] = root["launches_512"][name]
+        row["launches_evaluate_single_2048"] = root["launches"][name]
+        if name in root["errors"]:
+            row["max_abs_err_evaluate_single"] = root["errors"][name]
+            row["max_abs_err"] = max(row["max_abs_err"], root["errors"][name])
+    root["figures"]["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 9 figures: {json.dumps(root['figures'])}")
+    done(9, t0)
 
     if profiling:
         t0 = time.perf_counter()

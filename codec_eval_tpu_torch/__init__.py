@@ -30,9 +30,58 @@ from .engine import (  # noqa: E402
     EvalSession,
     ImageData,
     ImageReport,
+    assert_perception_level,
+    assert_quality,
+    evaluate_single,
 )
-from .errors import CodecError, CodecEvalError, DimensionMismatch  # noqa: E402
+from .errors import (  # noqa: E402
+    CodecError,
+    CodecEvalError,
+    DimensionMismatch,
+    QualityBelowThreshold,
+)
 from .metrics import MetricConfig, MetricResult, PerceptionLevel  # noqa: E402
+from .stats.pareto import ParetoFront, RDPoint  # noqa: E402
+from .stats.summary import (  # noqa: E402
+    Summary,
+    bd_rate,
+    iqr,
+    mean,
+    median,
+    percentile,
+    percentile_u32,
+    std_dev,
+    trimmed_mean,
+)
+from .viewing import (  # noqa: E402
+    REFERENCE_PPD,
+    SimulationMode,
+    SimulationParams,
+    ViewingCondition,
+    presets,
+)
+
+
+def xyb_roundtrip(rgb_u8, width=None, height=None, device="cuda"):
+    """sRGB u8 -> quantized-XYB -> sRGB u8 roundtrip on ``device`` (the card
+    unless the caller asks for the CPU).
+
+    Accepts an (H, W, 3) array, or flat bytes plus width/height for parity
+    with the reference signature (reference: src/metrics/xyb.rs:225).
+    """
+    import numpy as np
+
+    from .engine.scoring import resolve_device
+    from .kernels import color as _kc
+
+    dev = resolve_device(device)
+    if width is not None:
+        arr = np.frombuffer(bytes(rgb_u8), dtype=np.uint8).reshape(height, width, 3)
+        out = _kc.xyb_roundtrip(torch.from_numpy(arr.copy()).to(dev))
+        return out.cpu().numpy().reshape(-1).tobytes()
+    arr = np.ascontiguousarray(np.asarray(rgb_u8))
+    return _kc.xyb_roundtrip(torch.from_numpy(arr).to(dev)).cpu().numpy()
+
 
 __all__ = [
     "BatchScorer",
@@ -48,5 +97,26 @@ __all__ = [
     "ImageReport",
     "MetricConfig",
     "MetricResult",
+    "ParetoFront",
     "PerceptionLevel",
+    "QualityBelowThreshold",
+    "RDPoint",
+    "REFERENCE_PPD",
+    "SimulationMode",
+    "SimulationParams",
+    "Summary",
+    "ViewingCondition",
+    "assert_perception_level",
+    "assert_quality",
+    "bd_rate",
+    "evaluate_single",
+    "iqr",
+    "mean",
+    "median",
+    "percentile",
+    "percentile_u32",
+    "presets",
+    "std_dev",
+    "trimmed_mean",
+    "xyb_roundtrip",
 ]

@@ -1,13 +1,24 @@
 """Evaluation engine: images, reports, the batch scorer and the session."""
 
+from .helpers import assert_perception_level, assert_quality, evaluate_single
 from .image import ImageData
 from .report import CodecResult, ImageReport, write_json
 from .scoring import BatchScorer
-from .session import EncodeRequest, EvalConfig, EvalConfigBuilder, EvalSession
+from .session import (
+    DEFAULT_QUALITY_LEVELS,
+    EncodeRequest,
+    EvalConfig,
+    EvalConfigBuilder,
+    EvalSession,
+)
 
 __all__ = [
+    "assert_perception_level",
+    "assert_quality",
+    "evaluate_single",
     "BatchScorer",
     "CodecResult",
+    "DEFAULT_QUALITY_LEVELS",
     "EncodeRequest",
     "EvalConfig",
     "EvalConfigBuilder",

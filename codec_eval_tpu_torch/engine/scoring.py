@@ -138,3 +138,7 @@ class BatchScorer:
             MetricResult(**{k: float(raw[k][i]) if k in raw else None for k in METRICS})
             for i in range(n)
         ]
+
+    def score_pair(self, reference_u8: np.ndarray, candidate_u8: np.ndarray) -> MetricResult:
+        """One candidate: ``score_batch`` at N = 1, the same route and kernels."""
+        return self.score_batch(reference_u8, candidate_u8[None])[0]

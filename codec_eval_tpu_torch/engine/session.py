@@ -17,6 +17,7 @@ import numpy as np
 
 from ..errors import CodecError, CodecEvalError, DimensionMismatch, InvalidQuality
 from ..metrics import MetricConfig, MetricResult
+from ..viewing import ViewingCondition
 from .image import ImageData
 from .report import CodecResult, ImageReport, write_json
 from .scoring import BatchScorer
@@ -36,12 +37,17 @@ class EncodeRequest:
     quality: float
     params: Dict[str, str] = field(default_factory=dict)
 
+    def with_param(self, key: str, value: str) -> "EncodeRequest":
+        self.params[key] = value
+        return self
+
 
 @dataclass
 class EvalConfig:
     """Session configuration.  reference: src/eval/session.rs:188-278."""
 
     report_dir: Path
+    viewing: ViewingCondition = field(default_factory=ViewingCondition.desktop)
     metrics: MetricConfig = field(default_factory=MetricConfig.all)
     quality_levels: List[float] = field(default_factory=lambda: list(DEFAULT_QUALITY_LEVELS))
 
@@ -60,11 +66,16 @@ class EvalConfigBuilder:
 
     def __init__(self) -> None:
         self._report_dir: Optional[Path] = None
+        self._viewing: Optional[ViewingCondition] = None
         self._metrics: Optional[MetricConfig] = None
         self._quality_levels: Optional[List[float]] = None
 
     def report_dir(self, path) -> "EvalConfigBuilder":
         self._report_dir = Path(path)
+        return self
+
+    def viewing(self, viewing: ViewingCondition) -> "EvalConfigBuilder":
+        self._viewing = viewing
         return self
 
     def metrics(self, metrics: MetricConfig) -> "EvalConfigBuilder":
@@ -80,6 +91,7 @@ class EvalConfigBuilder:
             raise ValueError("report_dir is required")
         return EvalConfig(
             report_dir=self._report_dir,
+            viewing=self._viewing or ViewingCondition.desktop(),
             metrics=self._metrics or MetricConfig.all(),
             quality_levels=self._quality_levels or list(DEFAULT_QUALITY_LEVELS),
         )

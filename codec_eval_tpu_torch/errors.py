@@ -1,4 +1,4 @@
-"""The error types the session, the scorer and the metrics raise, copied from
+"""The typed error hierarchy, copied from
 ``codec_eval_tpu/errors.py`` (the port imports nothing from the JAX
 package).  reference: src/error.rs:12-100."""
 
@@ -36,11 +36,40 @@ class MetricCalculationError(CodecEvalError):
         self.reason = reason
 
 
+class CorpusError(CodecEvalError):
+    pass
+
+
+class CsvImportError(CodecEvalError):
+    pass
+
+
 class InvalidQuality(CodecEvalError):
     def __init__(self, quality: float):
         super().__init__(f"invalid quality: {quality}")
         self.quality = quality
 
 
+class QualityBelowThreshold(CodecEvalError):
+    """A quality assertion failed (the CI-gate error).
+    reference: src/error.rs + src/eval/helpers.rs:230-253."""
+
+    def __init__(self, metric: str, value: float, threshold: float):
+        super().__init__(
+            f"{metric} quality below threshold: {value} vs required {threshold}"
+        )
+        self.metric = metric
+        self.value = value
+        self.threshold = threshold
+
+
 class UnsupportedFormat(CodecEvalError):
+    pass
+
+
+class ReportError(CodecEvalError):
+    pass
+
+
+class CacheError(CodecEvalError):
     pass

@@ -4,6 +4,7 @@ Both sides see the same numpy inputs, made from a seed; tolerance
 rtol=1e-5, atol=1e-6 (f32 rounding of pow/cbrt and summation order).
 """
 
+import importlib
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -16,7 +17,8 @@ from codec_eval_tpu.kernels import color as jcolor
 from codec_eval_tpu.kernels.psnr import psnr as jax_psnr
 from codec_eval_tpu_torch.kernels import blur as tblur
 from codec_eval_tpu_torch.kernels import color as tcolor
-from codec_eval_tpu_torch.kernels import psnr as tpsnr
+
+tpsnr = importlib.import_module("codec_eval_tpu_torch.kernels.psnr")
 
 SHAPES = [(48, 64), (37, 53)]
 TOL = dict(rtol=1e-5, atol=1e-6)

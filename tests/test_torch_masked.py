@@ -30,10 +30,10 @@ from codec_eval_tpu_torch import kernels as tk
 from codec_eval_tpu_torch.kernels import butteraugli as tba
 from codec_eval_tpu_torch.kernels import dssim as tds
 from codec_eval_tpu_torch.kernels import masked as tm
-from codec_eval_tpu_torch.kernels import psnr as tps
-from codec_eval_tpu_torch.kernels import ssimulacra2 as ts2
 
 jm = importlib.import_module("codec_eval_tpu.kernels.masked")
+tps = importlib.import_module("codec_eval_tpu_torch.kernels.psnr")
+ts2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
 
 METRICS = ("ssimulacra2", "dssim", "butteraugli", "psnr")
 RTOL = {"ssimulacra2": 1e-5, "dssim": 1e-5, "psnr": 1e-5, "butteraugli": 5e-4}

@@ -33,7 +33,6 @@ from codec_eval_tpu_torch import metrics as tm
 from codec_eval_tpu_torch.color import ColorProfile
 from codec_eval_tpu_torch.errors import DimensionMismatch, MetricCalculationError
 from codec_eval_tpu_torch.kernels import butteraugli as tba
-from codec_eval_tpu_torch.kernels import ssimulacra2 as ts2
 from codec_eval_tpu_torch.kernels.blur import blur_separable
 from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
 from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
@@ -42,6 +41,7 @@ from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
 jba = importlib.import_module("codec_eval_tpu.kernels.butteraugli")
 jds = importlib.import_module("codec_eval_tpu.kernels.dssim")
 js2 = importlib.import_module("codec_eval_tpu.kernels.ssimulacra2")
+ts2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
 
 SHAPES = [(24, 24), (37, 53)]
 RTOL = {"ssimulacra2": 1e-5, "dssim": 1e-5, "psnr": 1e-5, "butteraugli": 5e-4,

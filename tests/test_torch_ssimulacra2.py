@@ -6,6 +6,7 @@ scores to the JAX batch scorer at rtol=1e-5, atol=1e-4; the per-stage
 goldens at 1e-5.
 """
 
+import importlib
 from pathlib import Path
 
 import jax
@@ -18,8 +19,9 @@ from codec_eval_tpu.kernels.blur import blur_separable as jax_blur
 from codec_eval_tpu.kernels.ssimulacra2 import _scale_features as jax_scale_features
 from codec_eval_tpu.kernels.ssimulacra2 import precompute_reference as jax_precompute
 from codec_eval_tpu.kernels.ssimulacra2 import ssimulacra2_batch as jax_batch
-from codec_eval_tpu_torch.kernels import ssimulacra2 as ts2
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
+
+ts2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
 
 GOLDEN = Path(__file__).parent / "goldens" / "ssim2_stages.npz"
 SHAPES = [(48, 64), (37, 53)]
