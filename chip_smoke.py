@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8/K2 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and then runs nine phases,
+``nvcc`` (one process per source, in parallel) and then runs ten phases,
 each failing loudly:
 
 1. device: the card's name and power limit, the kernels' build time, the
@@ -80,6 +80,20 @@ each failing loudly:
    2048 px call's shapes, and K1-K4 at the 512 px call's; and the stats
    layer on phase 3's ladder (a Pareto front, ``bd_rate`` against itself,
    ``find_knee``, an SVG chart).
+10. the corpus session with no ``device``: ``EvalSession.evaluate_corpus``
+   over four 512 px images x four callback codecs (phase 3's block-DCT
+   codec, a 4:2:0 variant, a coarser table, and a variant that raises at
+   q50 on the third image) x phase 3's 25 qualities, 100 candidates per
+   image, with ``cache_dir`` set: 4 x 100 rows with exactly one unscored
+   failed cell, the JSON back through ``CorpusReport.from_json``, the
+   13-column CSV, 399 artifacts of their rows' sizes; launches four times
+   phase 3's; every row equal to a second session's ``evaluate_image`` of
+   the same image (1e-6 relative) and three rows to the host; K1-K4 against
+   their plain versions at B = 100 (K2-K4 bit for bit); ``CodecRegistry``
+   with a ``CodecImpl`` and ``codecs.ReportGenerator`` on the card's
+   report; the pipeline's wall time against the serial sum of the four
+   ``evaluate_image`` walls, and one ``score_batch`` of 100 timed with its
+   peak device memory.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
 per size; K7, K8 and K2 launch by launch on one pair at each size (the
@@ -227,41 +241,55 @@ def _unblocks(blocks: np.ndarray) -> np.ndarray:
     return blocks.swapaxes(1, 2).reshape(bh * 8, bw * 8)
 
 
-def dct_encode(image, request) -> bytes:
-    """An 8x8 block-DCT quantizer on full-resolution YCbCr (baseline JPEG
-    without the entropy coder): the bytes are the zlib-compressed int16
-    quantized coefficients."""
+def dct_codec(scale: float = 1.0, subsample: bool = False, chroma: np.ndarray = _CHROMA):
+    """Encode and decode callbacks of an 8x8 block-DCT quantizer on YCbCr
+    (baseline JPEG without the entropy coder): the bytes are a header and
+    the zlib-compressed int16 quantized coefficients; the decode returns
+    (H, W, 3) u8.  Variants: the tables times ``scale``, chroma at half
+    resolution (4:2:0: 2x2 means, replicated back) when ``subsample``, and
+    ``chroma`` as the chroma table."""
     import scipy.fft
 
-    rgb = image.to_rgb8().astype(np.float64)
-    h, w = rgb.shape[:2]
-    if h % 8 or w % 8:
-        raise ValueError("the block-DCT codec takes sides that are multiples of 8")
-    ycc = rgb @ _RGB_TO_YCC.T
-    quality = int(request.quality)
-    coefs = []
-    for c in range(3):
-        table = _qtable(_LUMA if c == 0 else _CHROMA, quality)
-        level = ycc[..., c] - (128.0 if c == 0 else 0.0)
-        d = scipy.fft.dctn(_blocks(level), axes=(-2, -1), norm="ortho")
-        coefs.append(np.round(d / table).astype(np.int16))
-    header = np.array([h, w, quality], np.int32).tobytes()
-    return header + zlib.compress(np.stack(coefs).tobytes())
+    def tables(quality: int) -> list:
+        return [np.clip(_qtable(b, quality) * scale, 1, 255) for b in (_LUMA, chroma, chroma)]
+
+    def encode(image, request) -> bytes:
+        rgb = image.to_rgb8().astype(np.float64)
+        h, w = rgb.shape[:2]
+        block = 16 if subsample else 8
+        if h % block or w % block:
+            raise ValueError(f"the block-DCT codec takes sides that are multiples of {block}")
+        ycc = rgb @ _RGB_TO_YCC.T
+        quality = int(request.quality)
+        coefs = []
+        for c, table in enumerate(tables(quality)):
+            level = ycc[..., c] - (128.0 if c == 0 else 0.0)
+            if c and subsample:
+                level = level.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
+            d = scipy.fft.dctn(_blocks(level), axes=(-2, -1), norm="ortho")
+            coefs.append(np.round(d / table).astype(np.int16).tobytes())
+        return np.array([h, w, quality], np.int32).tobytes() + zlib.compress(b"".join(coefs))
+
+    def decode(data: bytes) -> np.ndarray:
+        h, w, quality = (int(v) for v in np.frombuffer(data[:12], np.int32))
+        raw = np.frombuffer(zlib.decompress(data[12:]), np.int16)
+        planes, at = [], 0
+        for c, table in enumerate(tables(quality)):
+            ph, pw = (h // 2, w // 2) if c and subsample else (h, w)
+            coefs = raw[at : at + ph * pw].reshape(ph // 8, pw // 8, 8, 8).astype(np.float64)
+            at += ph * pw
+            level = _unblocks(scipy.fft.idctn(coefs * table, axes=(-2, -1), norm="ortho"))
+            if c and subsample:
+                level = level.repeat(2, 0).repeat(2, 1)
+            planes.append(level + (128.0 if c == 0 else 0.0))
+        rgb = np.stack(planes, -1) @ _YCC_TO_RGB.T
+        return np.clip(np.floor(rgb + 0.5), 0, 255).astype(np.uint8)
+
+    return encode, decode
 
 
-def dct_decode_array(data: bytes) -> np.ndarray:
-    import scipy.fft
-
-    h, w, quality = (int(v) for v in np.frombuffer(data[:12], np.int32))
-    coefs = np.frombuffer(zlib.decompress(data[12:]), np.int16)
-    coefs = coefs.reshape(3, h // 8, w // 8, 8, 8).astype(np.float64)
-    planes = []
-    for c in range(3):
-        table = _qtable(_LUMA if c == 0 else _CHROMA, quality)
-        level = scipy.fft.idctn(coefs[c] * table, axes=(-2, -1), norm="ortho")
-        planes.append(_unblocks(level) + (128.0 if c == 0 else 0.0))
-    rgb = np.stack(planes, -1) @ _YCC_TO_RGB.T
-    return np.clip(np.floor(rgb + 0.5), 0, 255).astype(np.uint8)
+# Phases 3-10's codec, "dct-q".
+dct_encode, dct_decode_array = dct_codec()
 
 
 def candidates(ref_u8: np.ndarray, qualities) -> np.ndarray:
@@ -1860,6 +1888,299 @@ def phase_root(ref_u8: np.ndarray, rows_512: dict, bpp_512: dict, launches_512: 
             "figures": figures}
 
 
+# ------------------------------------------ phase 10: the corpus session
+
+CORPUS_SEEDS = (20240611, 20240612, 20240613, 20240614)  # four CID22-sized images
+CORPUS_FAIL = (2, 50)  # the fourth codec raises at q50 on the third image
+CORPUS_PICKS = ((0, "dct-q", 50), (1, "dct-420", 5), (3, "dct-coarse", 100))  # rescored on the host
+
+
+def corpus_codecs(fail_crc: int) -> list:
+    """(id, encode, decode) of phase 10's four codecs: phase 3's ``dct-q``,
+    a 4:2:0 variant, a coarser table and a variant with the luma table for
+    chroma, which raises at ``CORPUS_FAIL``'s quality on the image whose
+    crc32 is ``fail_crc``."""
+    import codec_eval_tpu_torch as ce
+
+    fine_encode, fine_decode = dct_codec(chroma=_LUMA)
+
+    def flaky_encode(image, request):
+        if (request.quality == CORPUS_FAIL[1]
+                and zlib.crc32(np.ascontiguousarray(image.to_rgb8()).data) == fail_crc):
+            raise OSError("simulated encoder crash")
+        return fine_encode(image, request)
+
+    def image_data(decode):
+        return lambda data: ce.ImageData.rgb8(decode(data))
+
+    return [
+        (codec_id, encode, image_data(decode)) for codec_id, (encode, decode) in (
+            ("dct-q", (dct_encode, dct_decode_array)),
+            ("dct-420", dct_codec(subsample=True)),
+            ("dct-coarse", dct_codec(scale=2.0)),
+            ("dct-lumachroma", (flaky_encode, fine_decode)),
+        )
+    ]
+
+
+def phase_corpus(launches_512: dict, device: torch.device) -> dict:
+    """Phase 10: ``EvalSession.evaluate_corpus`` with no ``device`` over four
+    512 px images x four callback codecs x 25 qualities (100 candidates per
+    image, one cell failing), ``cache_dir`` set and every metric on.  Checks
+    the report, its JSON and CSV, the artifacts, the launches around the
+    run (four times phase 3's), each row against a second session's
+    ``evaluate_image`` of the same image and three rows against the host;
+    holds K1-K4 to their plain versions at B = 100; drives ``CodecRegistry``
+    with a ``CodecImpl`` and the report generator on the card's report; and
+    times the pipeline against the serial sum and one ``score_batch`` of
+    100.  Returns the launches, K1-K4's errors and the figures."""
+    import csv
+
+    import codec_eval_tpu_torch as ce
+    from codec_eval_tpu_torch import codecs
+    from codec_eval_tpu_torch.engine.report import CSV_COLUMNS
+
+    images = [make_image(SIZE, seed) for seed in CORPUS_SEEDS]
+    names = [f"img{i}" for i in range(len(images))]
+    fail_name = names[CORPUS_FAIL[0]]
+    fail_crc = zlib.crc32(images[CORPUS_FAIL[0]].data)
+    codec_list = corpus_codecs(fail_crc)
+    metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
+    per_image = len(codec_list) * len(QUALITIES)
+    figures = {}
+    spans: dict = {}
+
+    def timed(session, label: str):
+        """Record the wall time of each call of the session's host phase
+        (``_stage_image``, on the worker thread in ``evaluate_corpus``) and
+        device phase (``_score_and_report``) under ``spans[label]``."""
+        for key, method in (("stage", "_stage_image"), ("score", "_score_and_report")):
+            calls = spans.setdefault(f"{key}_s_{label}", [])
+
+            def wrapper(*args, orig=getattr(session, method), calls=calls, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    calls.append(time.perf_counter() - t0)
+
+            setattr(session, method, wrapper)
+        return session
+
+    def session_for(report_dir: Path, cache_dir: Path, capture: Optional[list] = None):
+        """A session over the four codecs; with ``capture``, its first
+        ``per_image`` decodes (the first image's candidates, in batch order)
+        are also kept there."""
+        session = ce.EvalSession(
+            ce.EvalConfig.builder().report_dir(report_dir).cache_dir(cache_dir)
+            .metrics(ce.MetricConfig.all()).quality_levels(QUALITIES).build())
+        for codec_id, encode, decode in codec_list:
+            if capture is not None:
+                def decode(data, dec=decode):
+                    out = dec(data)
+                    if len(capture) < per_image:
+                        capture.append(out.to_rgb8())
+                    return out
+            session.add_codec_with_decode(codec_id, "1", encode, decode)
+        return session
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        session = timed(session_for(tmp / "reports", tmp / "cache"), "corpus")
+        if session._scorer.device.type != "cuda" or session.codec_count != len(codec_list):
+            raise AssertionError("the corpus session must default to the card")
+        items = [(n, ce.ImageData.rgb8(a)) for n, a in zip(names, images)]
+        seen = []
+        reset_launches()
+        t0 = time.perf_counter()
+        report = session.evaluate_corpus(items, name="corpus", progress=seen.append)
+        corpus_s = time.perf_counter() - t0
+        launches = read_launches()
+        print(f"  evaluate_corpus: {len(images)} images x {per_image} candidates in "
+              f"{corpus_s:.2f} s (host codecs included); progress {seen}")
+        check_launches(f"around evaluate_corpus ({len(images)} x phase 3's)", launches,
+                       {k: len(images) * v for k, v in launches_512.items()})
+        if seen != [f"[{i + 1}/{len(images)}] {n} OK" for i, n in enumerate(names)]:
+            raise AssertionError(f"progress messages: {seen}")
+
+        # The report: 4 x 100 rows, one unscored failed cell, the rest finite.
+        if [im.name for im in report.images] != names or report.total_results() != (
+                len(images) * per_image):
+            raise AssertionError("the corpus report does not hold 4 x 100 rows")
+        rows = [(im.name, r) for im in report.images for r in im.results]
+        failed = [(n, r) for n, r in rows if r.file_size == 0]
+        if [(n, r.codec_id, r.quality) for n, r in failed] != [
+                (fail_name, "dct-lumachroma", float(CORPUS_FAIL[1]))]:
+            raise AssertionError(f"failed cells: {[(n, r.codec_id, r.quality) for n, r in failed]}")
+        bad = failed[0][1]
+        if (bad.metrics != ce.MetricResult() or bad.perception is not None
+                or bad.cached_path is not None or bad.decode_time_ms is not None):
+            raise AssertionError(f"the failed cell is not an unscored row: {bad}")
+        with_bad = [c for c in session._codecs if c.id == "dct-lumachroma"][0]
+        try:
+            session._stage_cell(fail_name, items[CORPUS_FAIL[0]][1], with_bad,
+                                float(CORPUS_FAIL[1]))
+        except ce.CodecError as e:
+            error = str(e)
+        else:
+            raise AssertionError("the failing cell did not raise a CodecError")
+        if "encode failed at q50: OSError: simulated encoder crash" not in error:
+            raise AssertionError(f"the failing cell's error: {error}")
+        scored = [(n, r) for n, r in rows if r.file_size]
+        values = np.array([[getattr(r.metrics, m) for m in metrics] for _, r in scored],
+                          np.float64)
+        if values.shape != (len(rows) - 1, 4) or not np.isfinite(values).all() or any(
+                r.perception is None for _, r in scored):
+            raise AssertionError("the scored rows are not all finite")
+        print(f"  {len(scored)} rows scored and finite; the failed cell ({fail_name}, "
+              f"dct-lumachroma, q{CORPUS_FAIL[1]}) unscored: {error}")
+
+        # The written report: JSON back through from_json, the CSV, the artifacts.
+        session.write_corpus_report(report)
+        written = json.loads((tmp / "reports" / "corpus.json").read_text())
+        if ce.CorpusReport.from_json(written) != report:
+            raise AssertionError("CorpusReport.from_json of the written JSON differs")
+        with open(tmp / "reports" / "corpus.csv", newline="") as f:
+            table = list(csv.reader(f))
+        if table[0] != CSV_COLUMNS or len(CSV_COLUMNS) != 13 or len(table) != len(rows) + 1 or {
+                len(r) for r in table} != {13}:
+            raise AssertionError("the CSV is not 13 columns with one row per result")
+        if [(t[0], t[1], t[4]) for t in table[1:]] != [
+                (n, r.codec_id, str(r.file_size)) for n, r in rows]:
+            raise AssertionError("the CSV rows do not follow the report")
+        cached = sorted((tmp / "cache").iterdir())
+        sizes = {Path(r.cached_path).name: r.file_size for _, r in scored}
+        if len(cached) != len(scored) or {p.name: p.stat().st_size for p in cached} != sizes:
+            raise AssertionError(f"{len(cached)} artifacts in cache_dir, not one per scored row "
+                                 "of its row's size")
+        print(f"  JSON round trip equal; CSV of {len(table) - 1} rows x 13 columns; "
+              f"{len(cached)} artifacts in cache_dir, each of its row's file_size")
+
+        # Each row against a second session's evaluate_image, image by image:
+        # the same route and configuration, serially; the serial sum times
+        # the pipeline, and its artifacts equal the corpus run's.
+        capture: list = []
+        serial = timed(session_for(tmp / "serial", tmp / "serial-cache", capture), "serial")
+        serial_s, worst = [], 0.0
+        for i, (n, image) in enumerate(items):
+            t0 = time.perf_counter()
+            one = serial.evaluate_image(n, image, on_error="skip")
+            serial_s.append(time.perf_counter() - t0)
+            for r, w in zip(report.images[i].results, one.results):
+                if (r.codec_id, r.quality, r.file_size) != (w.codec_id, w.quality, w.file_size):
+                    raise AssertionError(f"{n}: rows differ: {r} vs {w}")
+                for m in metrics:
+                    g, want = getattr(r.metrics, m), getattr(w.metrics, m)
+                    if g is None and want is None:
+                        continue
+                    rel = rel_diff(g, want)
+                    worst = max(worst, rel)
+                    if not rel <= PAIR_VS_BATCH_RTOL:
+                        raise AssertionError(f"{n} {r.codec_id} q{r.quality} {m}: corpus {g!r} "
+                                             f"vs evaluate_image {want!r}")
+        batch_100 = np.stack(capture)
+        del capture
+        again = sorted((tmp / "serial-cache").iterdir())
+        if [p.name for p in again] != [p.name for p in cached] or any(
+                a.read_bytes() != b.read_bytes() for a, b in zip(again, cached)):
+            raise AssertionError("the serial session's artifacts differ from the corpus run's")
+        print(f"  every row equals evaluate_image's of the same image: largest relative "
+              f"difference {worst:.3e}")
+
+        # Three rows rescored on the host (the plain versions).
+        by_key = {(n, r.codec_id, r.quality): r for n, r in rows}
+        for idx, codec_id, q in CORPUS_PICKS:
+            encode, decode = next((e, d) for c, e, d in codec_list if c == codec_id)
+            image = items[idx][1]
+            cand = decode(encode(image, ce.EncodeRequest(quality=float(q)))).to_rgb8()
+            host = ce.BatchScorer(ce.MetricConfig.all(), device="cpu").score_pair(
+                images[idx], cand)
+            card = by_key[(names[idx], codec_id, float(q))].metrics
+            for m in metrics:
+                g, want = getattr(card, m), getattr(host, m)
+                print(f"    {names[idx]} {codec_id} q{q} {m}: card {g!r} host {want!r} "
+                      f"rel {rel_diff(g, want):.3e}")
+                if abs(g - want) > SCORE_RTOL[m] * abs(want):
+                    raise AssertionError(f"{names[idx]} {codec_id} q{q} {m}: card {g!r} vs "
+                                         f"host {want!r}")
+
+        # CodecRegistry with a CodecImpl, and the report generator.
+        class DctCodec(codecs.CodecImpl):
+            def id(self):
+                return "dct-q"
+
+            def version(self):
+                return "1"
+
+            def format(self):
+                return "dctq"
+
+            def encode(self, image, request):
+                return dct_encode(image, request)
+
+            def decode(self, data):
+                return ce.ImageData.rgb8(dct_decode_array(data))
+
+        registry = codecs.CodecRegistry(
+            codecs.CompareConfig.new(tmp / "registry").with_quality_levels(QUALITIES)
+            .with_metrics(ce.MetricConfig.all()))
+        if not registry.register_codec(DctCodec()) or registry.session._codecs[0].impl is None:
+            raise AssertionError("register_codec did not go through add_codec_impl")
+        reg = registry.evaluate_image(names[0], items[0][1])
+        mine = [r for r in report.images[0].results if r.codec_id == "dct-q"]
+        reg_worst = 0.0
+        for r, w in zip(reg.results, mine, strict=True):
+            if (r.quality, r.file_size) != (w.quality, w.file_size):
+                raise AssertionError(f"registry row {r} vs session row {w}")
+            for m in metrics:
+                rel = rel_diff(getattr(r.metrics, m), getattr(w.metrics, m))
+                reg_worst = max(reg_worst, rel)
+                if not rel <= PAIR_VS_BATCH_RTOL:
+                    raise AssertionError(f"registry q{r.quality} {m}: {r.metrics} vs {w.metrics}")
+        out = codecs.ReportGenerator(tmp / "generated").generate(report)
+        files = sorted(p.name for p in (tmp / "generated").iterdir())
+        if not {"pareto.svg", "stats.json", "pareto.json", "report.html"} <= set(files) or (
+                len(out["stats"].codecs) != len(codec_list)):
+            raise AssertionError(f"the report generator wrote {files}")
+        print(f"  CodecRegistry (CodecImpl, add_codec_impl) on {names[0]}: 25 rows equal the "
+              f"session's to {reg_worst:.3e}; ReportGenerator wrote {files} for "
+              f"{len(out['stats'].codecs)} codecs, Pareto front of {len(out['pareto'].points)}")
+
+    # K1-K4 against their plain versions at this path's shapes, B = 100.
+    print(f"  K1-K4 against their plain versions at B={len(batch_100)}, {SIZE} px "
+          "(one image's candidates)")
+    checks = phase_kernels(images[0], batch_100, device)
+    errors = {name: c.err for name, c in checks.items()}
+    if any(errors[k] for k in ("opsin_xyb", "bands", "malta_ac")):
+        raise AssertionError(f"K2-K4 not bit for bit at B={len(batch_100)}: {errors}")
+    del checks
+
+    # One score_batch of one image's 100 candidates, and the pipeline's figures.
+    # The peak is read above what earlier phases still hold on the card.
+    scorer = ce.BatchScorer(ce.MetricConfig.all())
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scorer.score_batch(images[0], batch_100)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        scorer.score_batch(images[0], batch_100)
+        times.append(time.perf_counter() - t0)
+    pairs = len(rows) - 1
+    figures.update(
+        evaluate_corpus_s=corpus_s, pairs=pairs, pairs_per_s=pairs / corpus_s,
+        evaluate_image_s=serial_s, serial_sum_s=sum(serial_s),
+        corpus_over_serial=corpus_s / sum(serial_s),
+        score_batch_100_ms=statistics.median(times) * 1e3,
+        score_batch_100_ms_each=[t * 1e3 for t in times],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        peak_above_held_gib=(torch.cuda.max_memory_allocated() - held_before) / 2**30,
+        **spans,
+    )
+    return {"launches": launches, "errors": errors, "figures": figures}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2013,6 +2334,20 @@ def main() -> int:
     root["figures"]["wall_s"] = time.perf_counter() - t0
     print(f"  phase 9 figures: {json.dumps(root['figures'])}")
     done(9, t0)
+
+    t0 = time.perf_counter()
+    print(f"[10] the corpus session, no device given: {len(CORPUS_SEEDS)} images x 4 codecs x "
+          f"{len(QUALITIES)} qualities at {SIZE}px | {card}")
+    corpus = phase_corpus(launches, device)
+    for row in rows:
+        name = row["name"]
+        row["launches_corpus"] = corpus["launches"][name]
+        row["max_abs_err_corpus"] = corpus["errors"].get(name)
+        if name in corpus["errors"]:
+            row["max_abs_err"] = max(row["max_abs_err"], corpus["errors"][name])
+    corpus["figures"]["wall_s"] = time.perf_counter() - t0
+    print(f"  corpus figures: {json.dumps(corpus['figures'])}")
+    done(10, t0)
 
     if profiling:
         t0 = time.perf_counter()

@@ -24,6 +24,7 @@ torch.backends.cudnn.allow_tf32 = False
 from .engine import (  # noqa: E402
     BatchScorer,
     CodecResult,
+    CorpusReport,
     EncodeRequest,
     EvalConfig,
     EvalConfigBuilder,
@@ -88,6 +89,7 @@ __all__ = [
     "CodecError",
     "CodecEvalError",
     "CodecResult",
+    "CorpusReport",
     "DimensionMismatch",
     "EncodeRequest",
     "EvalConfig",

@@ -2,7 +2,7 @@
 
 from .helpers import assert_perception_level, assert_quality, evaluate_single
 from .image import ImageData
-from .report import CodecResult, ImageReport, write_json
+from .report import CodecResult, CorpusReport, ImageReport, write_json
 from .scoring import BatchScorer
 from .session import (
     DEFAULT_QUALITY_LEVELS,
@@ -18,6 +18,7 @@ __all__ = [
     "evaluate_single",
     "BatchScorer",
     "CodecResult",
+    "CorpusReport",
     "DEFAULT_QUALITY_LEVELS",
     "EncodeRequest",
     "EvalConfig",

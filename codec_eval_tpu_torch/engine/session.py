@@ -1,9 +1,13 @@
 """EvalSession: the callback-based evaluation engine.
 
 Port of the host path of ``codec_eval_tpu/engine/session.py`` (reference:
-src/eval/session.rs:280-508).  Codecs are opaque host callbacks; every
+src/eval/session.rs:280-585).  Codecs are opaque host callbacks; every
 decoded candidate of an image is staged into one batch and scored by the
-``BatchScorer`` on the session's device in one pass.
+``BatchScorer`` on the session's device in one pass.  ``evaluate_corpus``
+runs a one-slot pipeline: a worker thread encodes and decodes image i+1 on
+the host while the main thread scores image i on the card.  The JAX
+package's device ladders for adapter codecs (``device_sweep``, device JPEG
+decode) are not ported: every codec runs through the host cells.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from ..errors import CodecError, CodecEvalError, DimensionMismatch, InvalidQuali
 from ..metrics import MetricConfig, MetricResult
 from ..viewing import ViewingCondition
 from .image import ImageData
-from .report import CodecResult, ImageReport, write_json
+from .report import CodecResult, CorpusReport, ImageReport, write_csv_summary, write_json
 from .scoring import BatchScorer
 
 #: Encode callback: (ImageData, EncodeRequest) -> bytes
@@ -47,6 +51,7 @@ class EvalConfig:
     """Session configuration.  reference: src/eval/session.rs:188-278."""
 
     report_dir: Path
+    cache_dir: Optional[Path] = None
     viewing: ViewingCondition = field(default_factory=ViewingCondition.desktop)
     metrics: MetricConfig = field(default_factory=MetricConfig.all)
     quality_levels: List[float] = field(default_factory=lambda: list(DEFAULT_QUALITY_LEVELS))
@@ -66,12 +71,19 @@ class EvalConfigBuilder:
 
     def __init__(self) -> None:
         self._report_dir: Optional[Path] = None
+        self._cache_dir: Optional[Path] = None
         self._viewing: Optional[ViewingCondition] = None
         self._metrics: Optional[MetricConfig] = None
         self._quality_levels: Optional[List[float]] = None
 
     def report_dir(self, path) -> "EvalConfigBuilder":
         self._report_dir = Path(path)
+        return self
+
+    def cache_dir(self, path) -> "EvalConfigBuilder":
+        """Write every encoded artifact to
+        ``<path>/<image>-<codec>-q<quality>.bin``."""
+        self._cache_dir = Path(path)
         return self
 
     def viewing(self, viewing: ViewingCondition) -> "EvalConfigBuilder":
@@ -91,6 +103,7 @@ class EvalConfigBuilder:
             raise ValueError("report_dir is required")
         return EvalConfig(
             report_dir=self._report_dir,
+            cache_dir=self._cache_dir,
             viewing=self._viewing or ViewingCondition.desktop(),
             metrics=self._metrics or MetricConfig.all(),
             quality_levels=self._quality_levels or list(DEFAULT_QUALITY_LEVELS),
@@ -103,6 +116,9 @@ class _CodecEntry:
     version: str
     encode: EncodeFn
     decode: Optional[DecodeFn]
+    #: The adapter object (``codecs.base.CodecImpl``) when registered with
+    #: ``add_codec_impl``; its cells run on the host like any callback's.
+    impl: Optional[object] = None
 
 
 class EvalSession:
@@ -127,9 +143,26 @@ class EvalSession:
         self._codecs.append(_CodecEntry(codec_id, version, encode, decode))
         return self
 
-    def _stage_cell(self, image: ImageData, codec: _CodecEntry, quality: float) -> dict:
-        """Host phase for one (codec, quality) cell: encode/decode, timed.
-        Callback failures become typed ``CodecError``s."""
+    def add_codec_impl(self, codec) -> "EvalSession":
+        """Register a ``CodecImpl`` adapter through its encode and decode
+        callbacks, keeping the adapter object."""
+        self._codecs.append(
+            _CodecEntry(
+                codec.id(), codec.version(), codec.encode_fn(), codec.decode_fn(), impl=codec
+            )
+        )
+        return self
+
+    @property
+    def codec_count(self) -> int:
+        return len(self._codecs)
+
+    def _stage_cell(
+        self, name: str, image: ImageData, codec: _CodecEntry, quality: float
+    ) -> dict:
+        """Host phase for one (codec, quality) cell: encode/decode, timed,
+        the artifact written under ``cache_dir`` when it is set.  Callback
+        failures become typed ``CodecError``s."""
         width, height = image.width, image.height
         request = EncodeRequest(quality=quality)
         t0 = time.perf_counter()
@@ -142,6 +175,14 @@ class EvalSession:
                 codec.id, f"encode failed at q{quality:g}: {type(e).__name__}: {e}"
             ) from e
         encode_ms = int((time.perf_counter() - t0) * 1000)
+
+        cached_path = None
+        if self.config.cache_dir is not None:
+            self.config.cache_dir.mkdir(parents=True, exist_ok=True)
+            cached = self.config.cache_dir / f"{name}-{codec.id}-q{quality:g}.bin"
+            cached.write_bytes(encoded)
+            cached_path = str(cached)
+
         entry = {
             "codec": codec,
             "quality": quality,
@@ -150,6 +191,7 @@ class EvalSession:
             "encode_ms": encode_ms,
             "decode_ms": None,
             "decoded": None,
+            "cached_path": cached_path,
             "error": None,
         }
         if codec.decode is not None:
@@ -171,14 +213,14 @@ class EvalSession:
             entry["decoded"] = decoded_rgb
         return entry
 
-    def _stage_image(self, image: ImageData, on_error: str = "raise") -> List[dict]:
+    def _stage_image(self, name: str, image: ImageData, on_error: str = "raise") -> List[dict]:
         """Run every (codec, quality) cell.  With ``on_error="skip"`` a
         failing cell is kept as an unscored row and the others still run."""
         staged: List[dict] = []
         for codec in self._codecs:
             for quality in self.config.quality_levels:
                 try:
-                    staged.append(self._stage_cell(image, codec, quality))
+                    staged.append(self._stage_cell(name, image, codec, quality))
                 except CodecEvalError as e:
                     if on_error != "skip":
                         raise
@@ -191,6 +233,7 @@ class EvalSession:
                             "encode_ms": 0,
                             "decode_ms": None,
                             "decoded": None,
+                            "cached_path": None,
                             "error": str(e),
                         }
                     )
@@ -219,6 +262,7 @@ class EvalSession:
                     decode_time_ms=e["decode_ms"],
                     metrics=metrics,
                     perception=metrics.perception_level() if e["decoded"] is not None else None,
+                    cached_path=e["cached_path"],
                     codec_params=e["params"],
                 )
             )
@@ -228,9 +272,55 @@ class EvalSession:
         """Evaluate one image across all codecs x quality levels: host codecs
         run serially (timed each), then every decoded candidate is scored in
         one batch."""
-        return self._score_and_report(name, image, self._stage_image(image, on_error))
+        return self._score_and_report(name, image, self._stage_image(name, image, on_error))
+
+    def evaluate_corpus(
+        self, images, name: str = "corpus", on_error: str = "skip", progress=None
+    ) -> CorpusReport:
+        """Evaluate an iterable of (name, ImageData) pairs with a one-slot
+        host/device pipeline: a worker thread runs image i+1's codecs while
+        the card scores image i.  ``on_error="skip"`` applies the
+        reference's skip-and-continue policy (a failing cell becomes an
+        unscored row); "raise" propagates."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        items = list(images)
+        corpus_report = CorpusReport(name=name)
+        if not items:
+            return corpus_report
+
+        def stage(idx):
+            img_name, image = items[idx]
+            return self._stage_image(img_name, image, on_error=on_error)
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            future = pool.submit(stage, 0)
+            for i, (img_name, image) in enumerate(items):
+                try:
+                    staged = future.result()
+                except CodecEvalError as e:
+                    if on_error == "raise":
+                        raise
+                    if progress:
+                        progress(f"SKIP {img_name} ({e})")
+                    staged = None
+                if i + 1 < len(items):
+                    future = pool.submit(stage, i + 1)
+                if staged is None:
+                    continue
+                corpus_report.images.append(self._score_and_report(img_name, image, staged))
+                if progress:
+                    progress(f"[{i + 1}/{len(items)}] {img_name} OK")
+        return corpus_report
 
     def write_image_report(self, report: ImageReport) -> None:
         """JSON report at <report_dir>/<name>.json.  reference: src/eval/session.rs:500-508."""
         self.config.report_dir.mkdir(parents=True, exist_ok=True)
         write_json(report, self.config.report_dir / f"{report.name}.json")
+
+    def write_corpus_report(self, report: CorpusReport) -> None:
+        """JSON and the 13-column CSV summary at <report_dir>/<name>.{json,csv}.
+        reference: src/eval/session.rs:511-584."""
+        self.config.report_dir.mkdir(parents=True, exist_ok=True)
+        write_json(report, self.config.report_dir / f"{report.name}.json")
+        write_csv_summary(report, self.config.report_dir / f"{report.name}.csv")

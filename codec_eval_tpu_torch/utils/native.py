@@ -1,13 +1,16 @@
-"""Host-side sRGB decoding for staging.
+"""Host helpers of ``codec_eval_tpu/utils/native.py``: sRGB decoding for
+staging and the FNV-1a file checksum.
 
-The counterpart of ``codec_eval_tpu/utils/native.py:srgb_to_linear_host``
-in its numpy lookup-table form only: the port builds no native host
+Both in their pure-Python forms only (a numpy lookup table, and
+``corpus.checksum``'s streaming hash): the port builds no native host
 library (its only compiled code is the kernels under ``csrc/``).
 """
 
 from __future__ import annotations
 
 import functools
+
+from pathlib import Path
 
 import numpy as np
 
@@ -25,3 +28,10 @@ def _lut() -> np.ndarray:
 def srgb_to_linear_host(u8: np.ndarray) -> np.ndarray:
     """sRGB u8 -> linear f32, any shape."""
     return _lut()[np.ascontiguousarray(u8)]
+
+
+def fnv1a64_file(path) -> int:
+    """FNV-1a 64-bit hash of a file's bytes; raises if it cannot be read."""
+    from ..corpus.checksum import fnv1a_64_file
+
+    return fnv1a_64_file(Path(path))

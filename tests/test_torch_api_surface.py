@@ -20,34 +20,13 @@ SNAPSHOT = REPO / "docs" / "public-api" / "codec_eval_tpu.txt"
 ROADMAP = REPO / "ROADMAP.md"
 # The modules the port has: "" is the package root.
 PORTED = ("", "engine", "metrics", "viewing", "stats", "kernels", "errors", "color", "iter",
-          "parallel")
+          "parallel", "corpus", "importers", "codecs", "decode")
 
 # Each name of the snapshot that the port lacks -> the ROADMAP Queue 1 item
 # that ports it, or "out of scope" for the TPU-only names the ROADMAP sets
 # aside.  Keys drop the module heading: "ImageData.open" stands for both
 # ``codec_eval_tpu.ImageData.open`` and ``codec_eval_tpu.engine.ImageData.open``.
 WAITING = {
-    # 2: the session's corpus half and the report types' queries.
-    "CorpusReport": 2,
-    "CodecResult.compression_ratio": 2,
-    "CodecResult.from_json": 2,
-    "ImageReport.best_at_size": 2,
-    "ImageReport.from_json": 2,
-    "ImageReport.results_for_codec": 2,
-    "ImageReport.smallest_at_quality": 2,
-    "EvalConfigBuilder.cache_dir": 2,
-    "EvalSession.add_codec_impl": 2,
-    "EvalSession.codec_count": 2,
-    "EvalSession.evaluate_corpus": 2,
-    "EvalSession.write_corpus_report": 2,
-    # 3: host IO: opening files, the slice and RGBA constructors, ICC.
-    "ImageData.open": 3,
-    "ImageData.rgba8": 3,
-    "ImageData.rgb_slice": 3,
-    "ImageData.rgba_slice": 3,
-    "ImageData.rgb_slice_with_icc": 3,
-    "ImageData.color_profile": 3,
-    "ImageData.to_rgb8_vec": 3,
     # 4: the codec-iter adapters and sources the command-line tools need.
     "AVIF_PRESETS": 4,
     "AvifIterConfig": 4,
@@ -59,7 +38,14 @@ WAITING = {
     "MEDIUM": 4,
     "load_image": 4,
     "load_sources": 4,
-    # 6: the device JPEG ladder.
+    # 6: the device JPEG ladder, and the codec adapter and device decode
+    # that run on it.
+    "TpuJpegCodec": 6,
+    **{f"TpuJpegCodec.{m}": 6 for m in (
+        "decode", "decode_fn", "device_sweep", "encode", "encode_fn", "encode_sweep", "format",
+        "id", "is_available", "presets", "version")},
+    "decode_jpeg_device": 6,
+    "score_jpeg_files": 6,
     "TpuSweepPoint": 6,
     "encode_to_target": 6,
     "evaluate_tpujpeg_sweep": 6,
@@ -128,11 +114,19 @@ def test_waiting_names_are_still_missing():
         assert not any(_resolve(h, key) for h, _kind, key in ENTRIES if key == name), name
 
 
-def test_only_corpus_report_waits_at_the_root():
+def test_no_root_name_waits():
     root = sorted(key for h, kind, key in ENTRIES
                   if h == "" and kind in ("class", "fn", "reexport", "const")
                   and not _resolve(h, key))
-    assert root == ["CorpusReport"]
+    assert root == []
+
+
+@pytest.mark.parametrize("heading", ["corpus", "importers", "codecs", "decode"])
+def test_host_io_and_codec_names_all_exist_but_the_device_jpeg_codec(heading):
+    missing = {key for h, _kind, key in ENTRIES if h == heading and not _resolve(h, key)}
+    assert {k for k in missing if not k.startswith("TpuJpegCodec")} <= {
+        "decode_jpeg_device", "score_jpeg_files"}
+    assert (heading == "codecs") == bool(missing)
 
 
 def test_waiting_items_are_in_the_roadmap():
@@ -150,7 +144,7 @@ def test_waiting_items_are_in_the_roadmap():
 def test_crate_root_names_of_this_slice():
     import codec_eval_tpu_torch as ce
 
-    for name in ("evaluate_single", "assert_quality", "assert_perception_level",
+    for name in ("CorpusReport", "evaluate_single", "assert_quality", "assert_perception_level",
                  "QualityBelowThreshold", "ViewingCondition", "presets", "SimulationParams",
                  "SimulationMode", "REFERENCE_PPD", "bd_rate", "ParetoFront", "RDPoint",
                  "Summary", "xyb_roundtrip"):

@@ -64,7 +64,9 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     walked = {str(f.relative_to(PACKAGE)) for f in files}
     assert {"color.py", "utils/native.py", "kernels/cuda/maskac.py", "metrics/calculate.py",
-            "metrics/prelude.py", "iter/eval.py", "iter/sweep.py", "iter/baseline.py"} <= walked
+            "metrics/prelude.py", "iter/eval.py", "iter/sweep.py", "iter/baseline.py",
+            "decode.py", "corpus/model.py", "corpus/download.py", "importers/csv_import.py",
+            "codecs/registry.py", "codecs/compare.py", "codecs/jxl.py"} <= walked
     bad = [(str(f.relative_to(PACKAGE)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
@@ -86,6 +88,44 @@ def test_parallel_exports_mesh_and_corpus_runner_only():
         "shard_batch", "sharded_masked_score_fn", "sharded_score_fn", "stage_pairs_sharded",
     }
     assert not hasattr(par, "multihost") and not hasattr(par, "ladder_runner")
+
+
+def test_port_needs_no_pil_until_a_pil_codec_or_profile_is_used(tmp_path):
+    """The card's machine has no PIL: with PIL unimportable, every module of
+    the port imports and a callback codec's corpus runs; only the PIL
+    adapters, ``ImageData.open``, ``decode`` and ICC transforms need it."""
+    import subprocess
+    import sys
+
+    script = f"""
+import sys
+sys.modules["PIL"] = None
+import pathlib, numpy as np
+import codec_eval_tpu_torch as ce
+for name in ("codecs", "corpus", "importers", "decode", "codecs.registry", "codecs.compare"):
+    __import__("codec_eval_tpu_torch." + name)
+config = (ce.EvalConfig.builder().report_dir({str(tmp_path)!r}).cache_dir({str(tmp_path)!r})
+          .metrics(ce.MetricConfig.fast()).quality_levels([50]).build())
+session = ce.EvalSession(config, device="cpu")
+session.add_codec_with_decode("id", "1", lambda im, rq: im.to_rgb8().tobytes(),
+                              lambda b: ce.ImageData.rgb_slice(b, 8, 8))
+img = ce.ImageData.rgb8(np.full((8, 8, 3), 7, np.uint8))
+report = session.evaluate_corpus([("a", img)])
+session.write_corpus_report(report)
+assert report.total_results() == 1 and report.images[0].results[0].metrics.psnr is not None
+try:
+    ce.ImageData(img.data, icc_profile=b"icc").to_rgb8_srgb()
+except ce.errors.MetricCalculationError as e:
+    assert "PIL" in str(e)
+else:
+    raise AssertionError("an ICC transform without PIL must raise")
+assert "PIL" not in [m.split(".")[0] for m in sys.modules if sys.modules[m] is not None]
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
 
 
 def test_chip_smoke_imports_no_jax():

@@ -125,8 +125,10 @@ def test_weight_matrices_are_cached_per_axis_and_method():
     np.testing.assert_allclose(a.sum(0).numpy(), np.ones(40), atol=1e-6)
 
 
+# The last is a path size: 512 -> 683, the 2x-srcset-on-1.5x-laptop preset.
 @pytest.mark.parametrize("shape", [(37, 53, 18, 26), (64, 64, 32, 32), (40, 60, 80, 120),
-                                   (37, 53, 56, 80), (96, 128, 72, 96), (37, 53, 37, 26)])
+                                   (37, 53, 56, 80), (96, 128, 72, 96), (37, 53, 37, 26),
+                                   (512, 512, 683, 683)])
 @pytest.mark.parametrize("method", ("linear", "cubic", "lanczos3"))
 def test_resize_u8_matches_jax(shape, method):
     h, w, th, tw = shape
