@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8/K2 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and then runs ten phases,
+``nvcc`` (one process per source, in parallel) and then runs eleven phases,
 each failing loudly:
 
 1. device: the card's name and power limit, the kernels' build time, the
@@ -94,6 +94,21 @@ each failing loudly:
    report; the pipeline's wall time against the serial sum of the four
    ``evaluate_image`` walls, and one ``score_batch`` of 100 timed with its
    peak device memory.
+11. the command-line layer with no ``device``, on inputs that need no PIL:
+   ``rd_calibrate``'s ladder scorer over four 512 px ``synthetic-photo-v1``
+   images at its default range, 10:2:98 (45 qualities of phase 3's codec;
+   launches four times phase 3's), and the knees, SVG and calibration code
+   its ``main`` writes; the same scorer on phase 5's 2048 px ladder (phase
+   5's launches, scores equal to phase 5's rows within 1e-6); K1-K4 against
+   their plain versions at B = 45 and K5 and K6 on the 2048 px ladder;
+   ``analysis.comparison``'s loop over two of the images x two block-DCT
+   codecs x 14 qualities with a JSONL checkpoint, resumed by a second call
+   that launches nothing, three rows rescored on the host, the CSV through
+   ``codec_analyze`` (find-outliers, rd-compare, build-predictor) and
+   ``codec_eval`` (pareto, stats); the heuristics of eight 512 px images and
+   of the 2048 px image against the host; ``device_trace`` around one call;
+   the ladder's ms per image at both sizes, its peak device memory, the
+   loop's wall and the scorer's share of it, the heuristics' ms.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
 per size; K7, K8 and K2 launch by launch on one pair at each size (the
@@ -2181,6 +2196,317 @@ def phase_corpus(launches_512: dict, device: torch.device) -> dict:
     return {"launches": launches, "errors": errors, "figures": figures}
 
 
+# ----------------------------------------- phase 11: the command-line layer
+
+CLI_SEED = 2026  # iter.source.photo_sources' default: the synthetic-photo-v1 corpus
+CLI_RANGE = "10:2:98"  # rd_calibrate's default range: 45 qualities
+CLI_SWEEP_QUALITIES = list(range(30, 96, 5))  # codec_analyze full-comparison's defaults: 14
+CLI_PICKS = ((0, "dct-q", 30), (1, "dct-420", 60), (1, "dct-q", 95))  # rescored on the host
+# Heuristics on the card against the host: continuous features within 1e-5
+# relative or 1e-5 of their full range; thresholded shares within one pixel
+# or block of the count.
+HEURISTIC_RANGE = {
+    **dict.fromkeys(["mean_luminance", "luminance_std", "edge_strength_mean",
+                     "edge_strength_max", "local_contrast_mean", "local_contrast_std",
+                     "horizontal_complexity", "vertical_complexity", "diagonal_complexity"],
+                    255.0),
+    **dict.fromkeys(["luminance_variance", "block_variance_mean", "block_variance_std",
+                     "color_variance"], 255.0 ** 2),
+    **dict.fromkeys(["saturation_mean", "saturation_std"], 1.0),
+}
+
+
+def iter_codec(codec_id: str, encode, decode):
+    """Phase 10's block-DCT callbacks as a codec-iter ``Codec``: (H, W, 3) u8
+    and an integer quality in, bytes out; bytes in, (H, W, 3) u8 out."""
+    import codec_eval_tpu_torch as ce
+    from codec_eval_tpu_torch.iter import Codec
+
+    return Codec(
+        encode=lambda rgb, q: encode(ce.ImageData.rgb8(rgb), ce.EncodeRequest(quality=float(q))),
+        decode=decode, summary=codec_id,
+    )
+
+
+def heuristics_agree(label: str, got: dict, want: dict, shape) -> None:
+    """The card's heuristics against the host's at the CPU tests' tolerances."""
+    h, w = shape[:2]
+    one = {"edge_density": 1.0 / ((h - 2) * (w - 2)),
+           "low_freq_energy": 1.0 / (h * (w - 1)), "high_freq_energy": 1.0 / (h * (w - 1))}
+    worst = 0.0
+    for k, v in want.items():
+        g = got[k]
+        if k in HEURISTIC_RANGE:
+            ok = abs(g - v) <= max(1e-5 * abs(v), 1e-5 * HEURISTIC_RANGE[k])
+            worst = max(worst, rel_diff(g, v))
+        elif k == "freq_ratio":
+            low, high = got["low_freq_energy"], got["high_freq_energy"]
+            ok = g == float(np.float32(high) / np.float32(low) if low > 0 else high)
+        else:
+            ok = abs(g - v) <= 1.0001 * one.get(k, 100.0 / ((h // 8) * (w // 8)))
+        if not ok:
+            raise AssertionError(f"{label} {k}: card {g!r} vs host {v!r}")
+    print(f"  {label}: card equals the host within the tolerances; largest relative "
+          f"difference of a continuous feature {worst:.3e}")
+
+
+def median_ms(fn, runs: int = 5) -> tuple:
+    """Host-clock ms of ``fn`` (which ends in a device-to-host copy): the
+    median of ``runs`` after one warm-up, and each run."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def phase_cli(launches_512: dict, launches_big: dict, big_u8: np.ndarray, big_batch: np.ndarray,
+              big_rows: dict, card: str, device: torch.device) -> dict:
+    """Phase 11: the command-line tools' device work with no ``device``
+    given, on inputs that need no PIL: ``rd_calibrate``'s ladder scorer over
+    four 512 px ``synthetic-photo-v1`` images at its default range (45
+    qualities of phase 3's codec) and on phase 5's 2048 px ladder, and the
+    calibration ``main`` writes from it; ``analysis.comparison``'s loop
+    (``sweep_images``, the loop of ``sweep_codecs``) over two of those
+    images x two block-DCT codecs x 14 qualities with a JSONL checkpoint,
+    resumed; ``codec_analyze`` and ``codec_eval`` on its CSV; the
+    heuristics; ``device_trace``.  Returns the launches, the kernels'
+    errors and the figures."""
+    import csv
+    import importlib.util
+
+    import codec_eval_tpu_torch as ce
+    from codec_eval_tpu_torch import analysis
+    from codec_eval_tpu_torch.analysis import comparison, heuristics
+    from codec_eval_tpu_torch.cli import codec_analyze, codec_eval, rd_calibrate
+    from codec_eval_tpu_torch.iter.source import photo_sources
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+    from codec_eval_tpu_torch.stats import WEB_FRAME, CorpusAggregate
+    from codec_eval_tpu_torch.stats.rd_plot import plot_rd_svg
+    from codec_eval_tpu_torch.utils.profiling import device_trace
+
+    print(f"  PIL importable on this machine: {importlib.util.find_spec('PIL') is not None} "
+          "(this phase does not use it)")
+    figures: dict = {"card": card}
+    errors: dict = {}
+    qualities = rd_calibrate.parse_range(CLI_RANGE)
+    sources = photo_sources(n=8, size=SIZE, seed=CLI_SEED)
+    images = [s.rgb for s in sources[:4]]
+
+    def ladder(rgb: np.ndarray, encode, decode, qs) -> tuple:
+        img = ce.ImageData.rgb8(rgb)
+        data = [encode(img, ce.EncodeRequest(quality=float(q))) for q in qs]
+        return [len(d) for d in data], np.stack([decode(d) for d in data])
+
+    # rd_calibrate at 512 px: sweep_corpus's loop body over the four images.
+    ladders = [ladder(rgb, dct_encode, dct_decode_array, qualities) for rgb in images]
+    by_quality = {q: [] for q in qualities}
+    reset_launches()
+    for (sizes, batch), rgb in zip(ladders, images):
+        s2s, bas = rd_calibrate.score_ladder(rgb, batch)
+        h, w = rgb.shape[:2]
+        for q, size, s2, ba in zip(qualities, sizes, s2s, bas):
+            if np.isfinite(s2) and np.isfinite(ba):
+                by_quality[q].append((size * 8.0 / (w * h), float(s2), float(ba)))
+    launches = read_launches()
+    check_launches(f"rd_calibrate's ladder, {len(images)} x B={len(qualities)} at {SIZE}px "
+                   "(4 x phase 3's)", launches, {k: 4 * v for k, v in launches_512.items()})
+    if any(len(v) != len(images) for v in by_quality.values()):
+        raise AssertionError("a 512 px ladder score is not finite")
+    total = dict(launches)
+
+    # What main does with the scores: the curve, the knees, the SVG, the code.
+    curve = rd_calibrate.aggregate_curve(by_quality)
+    agg = CorpusAggregate("synthetic-photo-v1", "dct-q", curve, len(images))
+    cal = agg.calibrate(WEB_FRAME)
+    if len(curve) != len(qualities) or cal is None:
+        raise AssertionError(f"knee detection failed on a curve of {len(curve)} points")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        (out / "rd_curve.svg").write_text(plot_rd_svg(curve, WEB_FRAME, cal, title="R-D: dct-q"))
+        code = rd_calibrate.emit_calibration_code(cal, "synthetic-photo-v1", "dct-q")
+        (out / "calibration.py").write_text(code + "\n")
+        svg = (out / "rd_curve.svg").read_text()
+        if not svg.startswith("<svg") or "RDCalibration" not in (out / "calibration.py").read_text():
+            raise AssertionError("the SVG or calibration.py was not written")
+    print(f"  knees: s2 {cal.ssimulacra2.bpp:.4f} bpp @ {cal.ssimulacra2.quality:.2f} "
+          f"({cal.ssimulacra2.fixed_angle:.1f} deg), ba {cal.butteraugli.bpp:.4f} bpp @ "
+          f"{cal.butteraugli.quality:.3f} ({cal.butteraugli.fixed_angle:.1f} deg); "
+          f"rd_curve.svg ({len(svg)} bytes) and calibration.py written")
+
+    # K1-K4 against their plain versions at B = 45.
+    print(f"  K1-K4 against their plain versions at B={len(qualities)}, {SIZE} px")
+    checks = phase_kernels(images[0], ladders[0][1], device)
+    errors.update({name: c.err for name, c in checks.items()})
+    if any(errors[k] for k in ("opsin_xyb", "bands", "malta_ac")):
+        raise AssertionError(f"K2-K4 not bit for bit at B={len(qualities)}: {errors}")
+    del checks
+
+    # One image's ladder timed, with its peak above what the process holds.
+    ref, batch = images[0], ladders[0][1]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    figures["ladder_512_ms"], figures["ladder_512_ms_each"] = median_ms(
+        lambda: rd_calibrate.score_ladder(ref, batch))
+    figures["ladder_512_peak_above_held_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+
+    # rd_calibrate at 2048 px on phase 5's ladder: K5 and K6 on phase 5's routes.
+    reset_launches()
+    s2s, bas = rd_calibrate.score_ladder(big_u8, big_batch)
+    launches = read_launches()
+    check_launches(f"rd_calibrate's ladder, B={len(big_batch)} at {BIG}px (phase 5's)", launches,
+                   launches_big)
+    total = {k: total[k] + v for k, v in launches.items()}
+    worst = 0.0
+    for q, s2, ba in zip(BIG_QUALITIES, s2s, bas):
+        for m, g in (("ssimulacra2", s2), ("butteraugli", ba)):
+            want = getattr(big_rows[q], m)
+            worst = max(worst, rel_diff(float(g), want))
+            if not rel_diff(float(g), want) <= PAIR_VS_BATCH_RTOL:
+                raise AssertionError(f"2048 px ladder q{q} {m}: {g!r} vs score_batch {want!r}")
+    print(f"  the 2048 px ladder equals phase 5's score_batch rows: largest relative "
+          f"difference {worst:.3e}")
+    k56, _, _ = phase_kernels_big(big_u8, big_batch, device)
+    errors.update({name: c.err for name, c in k56.items()})
+    del k56
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    figures["ladder_2048_ms"], figures["ladder_2048_ms_each"] = median_ms(
+        lambda: rd_calibrate.score_ladder(big_u8, big_batch))
+    figures["ladder_2048_peak_above_held_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+
+    # The comparison loop with a JSONL checkpoint: two images x two codecs.
+    codecs = [iter_codec("dct-q", dct_encode, dct_decode_array),
+              iter_codec("dct-420", *dct_codec(subsample=True))]
+    named = [(s.name, s.rgb) for s in sources[:2]]
+    score_s = []
+    score_sweep = comparison.score_sweep
+
+    def timed_score(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return score_sweep(*args, **kwargs)
+        finally:
+            score_s.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "full_comparison.jsonl"
+        seen: list = []
+        comparison.score_sweep = timed_score
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            rows = comparison.sweep_images(named, codecs, CLI_SWEEP_QUALITIES, len(named),
+                                           progress=seen.append, checkpoint=ckpt)
+            sweep_s = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            comparison.score_sweep = score_sweep
+        units = len(named) * len(codecs)
+        check_launches(f"sweep_images, {units} units x B={len(CLI_SWEEP_QUALITIES)} "
+                       f"({units} x phase 3's)", launches,
+                       {k: units * v for k, v in launches_512.items()})
+        total = {k: total[k] + v for k, v in launches.items()}
+        records = [json.loads(line) for line in ckpt.read_text().splitlines()]
+        if len(rows) != units * len(CLI_SWEEP_QUALITIES) or len(records) != units:
+            raise AssertionError(f"{len(rows)} rows and {len(records)} checkpoint records")
+        if not all(np.isfinite([r.ssimulacra2, r.dssim, r.butteraugli]).all() for r in rows):
+            raise AssertionError("a comparison score is not finite")
+        reset_launches()
+        resumed: list = []
+        again = comparison.sweep_images(named, codecs, CLI_SWEEP_QUALITIES, len(named),
+                                        progress=resumed.append, checkpoint=ckpt)
+        if again != rows or any(read_launches().values()) or resumed[0] != (
+                f"resumed {units} completed units from {ckpt}"):
+            raise AssertionError(f"the checkpoint did not resume every unit: {resumed}")
+        figures.update(sweep_s=sweep_s, sweep_score_s=sum(score_s),
+                       sweep_score_share=sum(score_s) / sweep_s)
+        print(f"  sweep_images: {len(rows)} rows in {sweep_s:.2f} s, the scorer "
+              f"{sum(score_s):.2f} s of it; {seen}; the second call resumed all {units} units "
+              "and launched nothing")
+
+        # Three rows against the host's scorer.
+        by_key = {(r.image, r.codec, r.quality): r for r in rows}
+        for idx, codec_id, q in CLI_PICKS:
+            codec = next(c for c in codecs if c.summary == codec_id)
+            name, rgb = named[idx]
+            cand = codec.decode(codec.encode(rgb, q))[None]
+            host = comparison.score_sweep(rgb, cand, device="cpu")
+            row = by_key[(name, codec_id, q)]
+            for m, want in zip(("ssimulacra2", "dssim", "butteraugli"), host):
+                g = getattr(row, m)
+                print(f"    {name} {codec_id} q{q} {m}: card {g!r} host {float(want[0])!r} "
+                      f"rel {rel_diff(g, float(want[0])):.3e}")
+                if abs(g - want[0]) > SCORE_RTOL[m] * abs(want[0]):
+                    raise AssertionError(f"{name} {codec_id} q{q} {m}: card {g!r} vs host")
+
+        # The host tails of codec_analyze and codec_eval on the rows and the CSV.
+        fc = tmp / "full_comparison.csv"
+        analysis.write_comparison_csv(rows, fc)
+        feats = heuristics.heuristics_batch(np.stack([rgb for _, rgb in named]))
+        table = {name: f for (name, _), f in zip(named, feats)}
+        outliers = analysis.find_outliers(rows, "dct-420", "dct-q")
+        matched = analysis.rd_compare(rows, "dct-420", "dct-q", [1.0, 2.0, 3.0])
+        samples = analysis.determine_winners(rows, table, "dct-420", "dct-q")
+        scores = analysis.evaluate_rules(samples, analysis.default_rules("dct-420", "dct-q"))
+        fitted = analysis.fit_logistic_rule(samples, "dct-420", "dct-q")
+        print(f"  find_outliers: mean advantage {outliers.corpus_mean_advantage:+.4f} over "
+              f"{len(outliers.images)} images; rd_compare at {sorted(matched.by_target)} bpp; "
+              f"{len(samples)} winner samples, best rule {scores[0].name if scores else None}, "
+              f"fitted rule {fitted.name if fitted else None}")
+        heur = tmp / "heuristics.csv"
+        with open(heur, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["image", "width", "height", "pixels"] + heuristics.FEATURE_NAMES)
+            for name, rgb in named:
+                writer.writerow([name, rgb.shape[1], rgb.shape[0], rgb.shape[0] * rgb.shape[1]]
+                                + [f"{table[name][k]:.4f}" for k in heuristics.FEATURE_NAMES])
+        for tool, argv in (
+            (codec_analyze, ["find-outliers", str(fc)]),
+            (codec_analyze, ["rd-compare", str(fc)]),
+            (codec_analyze, ["build-predictor", str(fc), str(heur)]),
+            (codec_eval, ["pareto", str(fc)]),
+            (codec_eval, ["stats", str(fc), "--by-image"]),
+        ):
+            print(f"  $ {tool.__name__.rsplit('.', 1)[1]} {' '.join(argv[:1])}")
+            if tool.main(argv) != 0:
+                raise AssertionError(f"{tool.__name__} {argv[0]} did not return 0")
+
+    # The heuristics on the card against the host.
+    photos = np.stack([s.rgb for s in sources])
+    card_feats = heuristics.heuristics_batch(photos)
+    host_feats = heuristics.heuristics_batch(photos, device="cpu")
+    for i, (g, w) in enumerate(zip(card_feats, host_feats)):
+        heuristics_agree(f"heuristics_batch image {i}", g, w, photos.shape[1:])
+    heuristics_agree(f"heuristics_one at {BIG}px", heuristics.heuristics_one(big_u8),
+                     heuristics.heuristics_one(big_u8, device="cpu"), big_u8.shape)
+    figures["heuristics_batch_8x512_ms"], _ = median_ms(lambda: heuristics.heuristics_batch(photos))
+    figures["heuristics_one_2048_ms"], _ = median_ms(lambda: heuristics.heuristics_one(big_u8))
+
+    # device_trace around one call of the scorer.
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            rd_calibrate.score_ladder(ref, batch)
+        traces = list(Path(tmp).iterdir())
+        if len(traces) != 1 or traces[0].stat().st_size == 0:
+            raise AssertionError(f"device_trace wrote {traces}")
+        events = json.loads(traces[0].read_text()).get("traceEvents", [])
+        on_card = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"  device_trace wrote {traces[0].name}: {len(events)} events, {on_card} of them "
+              "kernels on the card")
+        figures["trace_kernel_events"] = on_card
+    for key in ("ladder_512_ms", "ladder_2048_ms", "ladder_512_peak_above_held_gib",
+                "ladder_2048_peak_above_held_gib", "sweep_s", "sweep_score_share",
+                "heuristics_batch_8x512_ms", "heuristics_one_2048_ms"):
+        print(f"  {key}: {figures[key]!r} | {card}")
+    return {"launches": total, "errors": errors, "figures": figures}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2348,6 +2674,20 @@ def main() -> int:
     corpus["figures"]["wall_s"] = time.perf_counter() - t0
     print(f"  corpus figures: {json.dumps(corpus['figures'])}")
     done(10, t0)
+
+    t0 = time.perf_counter()
+    print(f"[11] the command-line layer, no device given | {card}")
+    cli = phase_cli(launches, launches_big, big_u8, big_batch, big_rows, card, device)
+    for row in rows:
+        name = row["name"]
+        row["launches_cli"] = cli["launches"][name]
+        row["max_abs_err_cli"] = cli["errors"].get(name)
+        if name in cli["errors"]:
+            row["max_abs_err"] = max(row["max_abs_err"], cli["errors"][name])
+    cli["figures"]["wall_s"] = time.perf_counter() - t0
+    print(f"  cli figures: {json.dumps(cli['figures'])}")
+    print(f"  phase 11 wall: {cli['figures']['wall_s']:.2f} s | {card}")
+    done(11, t0)
 
     if profiling:
         t0 = time.perf_counter()

@@ -89,6 +89,25 @@ def fetch_scores(scores: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: stacked[i].astype(np.float64) for i, k in enumerate(keys)}
 
 
+def score_ladder(
+    reference_u8: np.ndarray, candidates_u8: np.ndarray, config: MetricConfig, device="cuda"
+) -> Dict[str, np.ndarray]:
+    """The command-line tools' scorer: the (N, H, W, 3) u8 candidates of one
+    (H, W, 3) reference, staged once, planar, on ``device`` and fetched in
+    one copy, as ``{metric: f64 scores}`` for the metrics ``config`` asks for.
+
+    The JAX package's ``rd_calibrate`` and ``analysis.comparison`` compose
+    the metric functions without zeroing a candidate equal to the
+    reference, which they score 0 to within their rounding (< 1e-6); the
+    batch scorer's stages, which zero it, serve here as they are."""
+    dev = resolve_device(device)
+    pre = build_precompute(torch.from_numpy(np.require(reference_u8, requirements="CW")).to(dev),
+                          config)
+    planar = np.ascontiguousarray(np.moveaxis(candidates_u8, -1, 1))
+    batch = torch.from_numpy(planar).to(dev)
+    return fetch_scores(score_chunk(pre, batch, config))
+
+
 class BatchScorer:
     """Scores batches of decoded candidates against a reference image on one
     device.  The reference precompute is cached by (shape, config, content
@@ -106,7 +125,7 @@ class BatchScorer:
         return c.dssim or c.ssimulacra2 or c.butteraugli or c.psnr
 
     def precompute(self, reference_u8: np.ndarray) -> Dict[str, object]:
-        contig = np.ascontiguousarray(reference_u8)
+        contig = np.require(reference_u8, requirements="CW")
         c = self.config
         key = (
             reference_u8.shape,

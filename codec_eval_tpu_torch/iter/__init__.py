@@ -1,7 +1,9 @@
-"""codec-iter: the encoder-iteration layer (eval loop, baselines, sweeps).
+"""codec-iter: the encoder-iteration layer (eval loop, sources, codecs,
+baselines, sweeps).
 
-Port of ``codec_eval_tpu/iter`` without ``codecs.py`` and ``source.py``,
-which need PIL and come with the command-line tools.
+Port of ``codec_eval_tpu/iter`` without ``TpuJpegIterConfig`` and
+``run_eval_device``, which run on the device JPEG ladder (ROADMAP queue 1
+item 6).
 """
 
 from .baseline import (
@@ -12,19 +14,31 @@ from .baseline import (
     make_baseline,
     save_baseline,
 )
+from .codecs import AVIF_PRESETS, AvifIterConfig, JpegIterConfig, WebpIterConfig, build_codec
 from .eval import Codec, EvalPoint, EvalResult, SourceImage, run_eval
+from .source import MEDIUM, SMALL, TINY, load_image, load_sources
 from .sweep import SweepResult, print_sweep, run_sweep
 
 __all__ = [
+    "AVIF_PRESETS",
+    "AvifIterConfig",
     "Baseline",
     "Codec",
     "ComparisonRow",
     "EvalPoint",
     "EvalResult",
+    "JpegIterConfig",
+    "MEDIUM",
+    "SMALL",
     "SourceImage",
     "SweepResult",
+    "TINY",
+    "WebpIterConfig",
+    "build_codec",
     "compare_with_baseline",
     "load_baseline",
+    "load_image",
+    "load_sources",
     "make_baseline",
     "print_sweep",
     "run_eval",

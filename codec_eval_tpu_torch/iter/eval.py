@@ -124,7 +124,7 @@ def run_eval(
 
             h, w = src.rgb.shape[:2]
             batch = torch.from_numpy(np.stack([e["decoded"] for e in entries])).to(dev)
-            ref = torch.from_numpy(np.ascontiguousarray(src.rgb)).to(dev)
+            ref = torch.from_numpy(np.require(src.rgb, requirements="CW")).to(dev)
             scores = ssimulacra2_batch(ref, batch).cpu().numpy()
             for e, s in zip(entries, scores):
                 points.append(

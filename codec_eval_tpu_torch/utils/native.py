@@ -1,9 +1,11 @@
 """Host helpers of ``codec_eval_tpu/utils/native.py``: sRGB decoding for
-staging and the FNV-1a file checksum.
+staging, the FNV-1a file checksum, and binary PPM reading and writing for
+codec-iter's source cache.
 
-Both in their pure-Python forms only (a numpy lookup table, and
-``corpus.checksum``'s streaming hash): the port builds no native host
-library (its only compiled code is the kernels under ``csrc/``).
+All in their pure-Python forms only (a numpy lookup table,
+``corpus.checksum``'s streaming hash, and the JAX module's Python branch of
+``read_ppm`` and ``write_ppm``): the port builds no native host library
+(its only compiled code is the kernels under ``csrc/``).
 """
 
 from __future__ import annotations
@@ -35,3 +37,25 @@ def fnv1a64_file(path) -> int:
     from ..corpus.checksum import fnv1a_64_file
 
     return fnv1a_64_file(Path(path))
+
+
+def write_ppm(path, rgb: np.ndarray) -> None:
+    """(H, W, 3) u8 -> a binary P6 file with maxval 255."""
+    h, w = rgb.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(np.ascontiguousarray(rgb).tobytes())
+
+
+def read_ppm(path) -> np.ndarray:
+    """A binary P6 file with maxval 255, as ``write_ppm`` writes it -> (H, W, 3) u8."""
+    with open(path, "rb") as f:
+        magic = f.readline().strip()
+        if magic != b"P6":
+            raise IOError(f"not a P6 PPM: {path}")
+        dims = f.readline().split()
+        w_, h_ = int(dims[0]), int(dims[1])
+        if int(f.readline()) != 255:
+            raise IOError(f"not an 8-bit PPM: {path}")
+        data = np.frombuffer(f.read(w_ * h_ * 3), dtype=np.uint8)
+        return data.reshape(h_, w_, 3).copy()

@@ -20,24 +20,13 @@ SNAPSHOT = REPO / "docs" / "public-api" / "codec_eval_tpu.txt"
 ROADMAP = REPO / "ROADMAP.md"
 # The modules the port has: "" is the package root.
 PORTED = ("", "engine", "metrics", "viewing", "stats", "kernels", "errors", "color", "iter",
-          "parallel", "corpus", "importers", "codecs", "decode")
+          "parallel", "corpus", "importers", "codecs", "decode", "analysis")
 
 # Each name of the snapshot that the port lacks -> the ROADMAP Queue 1 item
 # that ports it, or "out of scope" for the TPU-only names the ROADMAP sets
 # aside.  Keys drop the module heading: "ImageData.open" stands for both
 # ``codec_eval_tpu.ImageData.open`` and ``codec_eval_tpu.engine.ImageData.open``.
 WAITING = {
-    # 4: the codec-iter adapters and sources the command-line tools need.
-    "AVIF_PRESETS": 4,
-    "AvifIterConfig": 4,
-    "JpegIterConfig": 4,
-    "WebpIterConfig": 4,
-    "build_codec": 4,
-    "TINY": 4,
-    "SMALL": 4,
-    "MEDIUM": 4,
-    "load_image": 4,
-    "load_sources": 4,
     # 6: the device JPEG ladder, and the codec adapter and device decode
     # that run on it.
     "TpuJpegCodec": 6,

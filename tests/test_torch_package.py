@@ -66,7 +66,11 @@ def test_port_imports_no_jax():
     assert {"color.py", "utils/native.py", "kernels/cuda/maskac.py", "metrics/calculate.py",
             "metrics/prelude.py", "iter/eval.py", "iter/sweep.py", "iter/baseline.py",
             "decode.py", "corpus/model.py", "corpus/download.py", "importers/csv_import.py",
-            "codecs/registry.py", "codecs/compare.py", "codecs/jxl.py"} <= walked
+            "codecs/registry.py", "codecs/compare.py", "codecs/jxl.py",
+            "iter/codecs.py", "iter/source.py", "utils/profiling.py", "analysis/heuristics.py",
+            "analysis/comparison.py", "analysis/predictor.py", "analysis/quality_predictor.py",
+            "cli/codec_iter.py", "cli/codec_eval.py", "cli/codec_compare.py",
+            "cli/rd_calibrate.py", "cli/codec_analyze.py"} <= walked
     bad = [(str(f.relative_to(PACKAGE)), m) for f in files for m in _imports(f) if _forbidden(m)]
     assert bad == []
 
