@@ -5,7 +5,7 @@
     python3 chip_smoke.py --profile    # and profiles: one batch per size, K7/K8/K2 per launch
 
 Builds the hand-written kernels from ``codec_eval_tpu_torch/csrc`` with
-``nvcc`` (one process per source, in parallel) and then runs eleven phases,
+``nvcc`` (one process per source, in parallel) and then runs twelve phases,
 each failing loudly:
 
 1. device: the card's name and power limit, the kernels' build time, the
@@ -109,6 +109,28 @@ each failing loudly:
    of the 2048 px image against the host; ``device_trace`` around one call;
    the ladder's ms per image at both sizes, its peak device memory, the
    loop's wall and the scorer's share of it, the heuristics' ms.
+12. the device JPEG ladder with no ``device`` and no PIL (a ``RuntimeWarning``
+   is an error): ``evaluate_tpujpeg_sweep`` of phase 3's image at its 25
+   qualities, all four metrics, with exact sizes and bytes (launches those
+   of phase 3's sweep: K1-K4, never K5-K9) and with device sizes (within
+   0.4% of the exact ones, the same scores); the ladder's candidates equal
+   ``decode_jpeg_device`` of its own bytes bit for bit, ``score_jpeg_files``
+   on them equals its scores, three candidates rescored on the host, K1-K4
+   against their plain versions on them; the XYB and progressive presets
+   (device sizes; the q50 bytes are the codec's) and the trellis preset,
+   whose DP on the card is held to ``trellis_quantize_native`` block by
+   block (at most 1e-4 of the blocks differ, sizes within 0.1%); phase 5's
+   image at q50..95 (phase 5's launches, K1-K6) with K5 and K6 against their
+   plain versions on its candidates; ``sweep_corpus_ladders`` over four
+   512 px ``synthetic-photo-v1`` images at 10:2:98 with exact and device
+   sizes, each image equal to its own sweep, and ``mean_curve``;
+   ``encode_to_target(min_ssimulacra2=70)`` rescored from its bytes; an
+   ``EvalSession`` with a preset of the registry's zenjpeg slot and
+   ``cache_dir`` (one device sweep, no fallback, its artifacts), the slot's
+   eight presets through ``CodecRegistry``, and a JPEG adapter without a
+   device sweep (one device decode); the ladder's ms at 512 and 2048 px with
+   exact and device sizes, the host entropy pass's share, the trellis DP's
+   ms, the corpus ladder's ms per image and the peak device memory.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
 per size; K7, K8 and K2 launch by launch on one pair at each size (the
@@ -2507,6 +2529,316 @@ def phase_cli(launches_512: dict, launches_big: dict, big_u8: np.ndarray, big_ba
     return {"launches": total, "errors": errors, "figures": figures}
 
 
+# ------------------------------------------ phase 12: the device JPEG ladder
+
+LADDER_PICKS = (5, 50, 100)  # the 512 px ladder's candidates rescored on the host
+DEVICE_SIZE_TOL = 0.004  # device size estimates against the exact sizes
+TRELLIS_BLOCK_SHARE = 1e-4  # blocks where the card's DP may differ from the native DP
+TRELLIS_SIZE_TOL = 0.001
+
+
+def ladder_candidates(rgb: np.ndarray, qualities, device, **kw) -> tuple:
+    """The candidates (n_q, 3, H, W) and int16 coefficients of
+    ``evaluate_tpujpeg_sweep``'s ladder with the same settings."""
+    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
+    from codec_eval_tpu_torch.kernels import jpeg_enc
+
+    cs = kw.get("colorspace", "ycbcr")
+    qt = torch.from_numpy(_qtabs_for(qualities, cs)).to(device)
+    return jpeg_enc.reconstruct_sweep(
+        torch.from_numpy(rgb).to(device), qt, kw.get("aq_strength", 0.30),
+        "444" if cs == "xyb" else kw.get("subsampling", "420"), cs,
+        trellis_lambda=kw.get("trellis_lambda", 0.0))
+
+
+def sizes_agree(label: str, exact: list, device_sizes: list, tol: float) -> float:
+    """Device size estimates within ``tol`` of the exact sizes, or 6 bytes
+    on a small file (the JAX package's bound)."""
+    worst = max(abs(d - e) / e for d, e in zip(device_sizes, exact))
+    print(f"  {label}: device size estimates within {worst:.4%} of the exact sizes")
+    if any(abs(d - e) > max(6, tol * e) for d, e in zip(device_sizes, exact)):
+        raise AssertionError(f"{label}: device sizes {worst:.4%} from the exact sizes")
+    return worst
+
+
+def scores_equal(label: str, got: list, want: list, rtol: float) -> float:
+    """Two lists of {metric: score} equal within ``rtol`` relative."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.keys() != w.keys():
+            raise AssertionError(f"{label}: metrics {sorted(g)} vs {sorted(w)}")
+        for k in w:
+            worst = max(worst, rel_diff(g[k], w[k]))
+            if not rel_diff(g[k], w[k]) <= rtol:
+                raise AssertionError(f"{label} {k}: {g[k]!r} vs {w[k]!r}")
+    print(f"  {label}: largest relative difference {worst:.3e}")
+    return worst
+
+
+def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, launches_big: dict,
+                 card: str, device: torch.device) -> dict:
+    """Phase 12: the device JPEG ladder with no ``device`` given, and no
+    PIL.  Returns the launches of the 512 and 2048 px ladders, the kernels'
+    errors at the ladders' shapes, and the figures."""
+    import warnings
+
+    import codec_eval_tpu_torch as ce
+    from codec_eval_tpu_torch import codecs
+    from codec_eval_tpu_torch.cli import rd_calibrate
+    from codec_eval_tpu_torch.codecs import TpuJpegCodec, decode_jpeg_device, score_jpeg_files
+    from codec_eval_tpu_torch.codecs.jpeg_device import _decode_parsed, parse_jpeg
+    from codec_eval_tpu_torch.engine import encode_to_target, evaluate_tpujpeg_sweep
+    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
+    from codec_eval_tpu_torch.iter.source import photo_sources
+    from codec_eval_tpu_torch.kernels import jpeg_enc
+    from codec_eval_tpu_torch.parallel import sweep_corpus_ladders
+    from codec_eval_tpu_torch.utils import native
+
+    figures: dict = {"card": card}
+    errors: dict = {}
+    launches: dict = {}
+
+    # The 512 px ladder, exact sizes and bytes.
+    reset_launches()
+    exact = evaluate_tpujpeg_sweep(ref_u8, QUALITIES, return_bytes=True)
+    launches["512"] = read_launches()
+    check_launches(f"the {SIZE} px ladder, B={len(QUALITIES)} (phase 3's)", launches["512"],
+                   launches_512)
+    dev_sized = evaluate_tpujpeg_sweep(ref_u8, QUALITIES, with_sizes="device")
+    sizes_agree(f"{SIZE} px ladder", [p.file_size for p in exact],
+                [p.file_size for p in dev_sized], DEVICE_SIZE_TOL)
+    scores_equal(f"{SIZE} px ladder, device-sized run against the exact run",
+                 [p.metrics for p in dev_sized], [p.metrics for p in exact], PAIR_VS_BATCH_RTOL)
+    if not all(np.isfinite(v) for p in exact for v in p.metrics.values()):
+        raise AssertionError("a 512 px ladder score is not finite")
+    cands, _ = ladder_candidates(ref_u8, QUALITIES, device)
+    blobs = [p.data for p in exact]
+    batch = _decode_parsed([parse_jpeg(d) for d in blobs], device)
+    single = [decode_jpeg_device(d) for d in blobs]
+    if not torch.equal(batch, cands) or not all(
+            np.array_equal(one, c) for one, c in zip(single, cands.permute(0, 2, 3, 1).cpu().numpy())):
+        raise AssertionError("the ladder's candidates are not the device decode of its bytes")
+    print(f"  the ladder's {len(QUALITIES)} candidates equal decode_jpeg_device of its own bytes "
+          "bit for bit (one by one and as a batch)")
+    scores_equal("score_jpeg_files on the ladder's bytes against the ladder",
+                 score_jpeg_files(ref_u8, blobs), [p.metrics for p in exact], PAIR_VS_BATCH_RTOL)
+    host = ce.BatchScorer(ce.MetricConfig.all(), device="cpu").score_batch(
+        ref_u8, cands[[QUALITIES.index(q) for q in LADDER_PICKS]].permute(0, 2, 3, 1).cpu().numpy())
+    for q, h in zip(LADDER_PICKS, host):
+        card_row = exact[QUALITIES.index(q)].metrics
+        for m, tol in SCORE_RTOL.items():
+            want = getattr(h, m)
+            print(f"    q{q} {m}: card {card_row[m]!r} host {want!r} "
+                  f"rel {rel_diff(card_row[m], want):.3e}")
+            if m != "psnr" or np.isfinite(want):
+                if abs(card_row[m] - want) > tol * abs(want):
+                    raise AssertionError(f"ladder q{q} {m}: card {card_row[m]!r} vs host {want!r}")
+    print(f"  K1-K4 against their plain versions on the {SIZE} px ladder's candidates")
+    nhwc = cands.permute(0, 2, 3, 1).cpu().numpy()
+    checks = phase_kernels(ref_u8, nhwc, device)
+    errors.update({name: c.err for name, c in checks.items()})
+    del checks
+
+    # The other presets: XYB, progressive with device sizes, trellis.
+    for label, kw in (("tpujpeg-xyb-aq", dict(colorspace="xyb")),
+                      ("tpujpeg-420-aq-prog", dict(progressive=True))):
+        pts = evaluate_tpujpeg_sweep(ref_u8, QUALITIES, return_bytes=True, **kw)
+        est = evaluate_tpujpeg_sweep(ref_u8, QUALITIES, with_sizes="device", **kw)
+        sizes_agree(label, [p.file_size for p in pts], [p.file_size for p in est],
+                    DEVICE_SIZE_TOL)
+        codec = TpuJpegCodec(**kw)
+        picked = pts[QUALITIES.index(50)]
+        if codec.encode(ce.ImageData.rgb8(ref_u8), ce.EncodeRequest(50.0)) != picked.data:
+            raise AssertionError(f"{label}: the ladder's q50 bytes are not the codec's")
+    trellis = TpuJpegCodec(trellis=True)
+    t_pts = trellis.device_sweep(ce.ImageData.rgb8(ref_u8), QUALITIES, ("ssimulacra2",),
+                                 with_bytes=True)
+    planes = jpeg_enc.jpeg_transform(ref_u8, "420")
+    _, t_coefs = ladder_candidates(ref_u8, QUALITIES, device, aq_strength=0.0, trellis_lambda=0.1)
+    qt = _qtabs_for(QUALITIES)[:, :, jpeg_enc.ZIGZAG]
+    differ = total = 0
+    worst_size = 0.0
+    for qi, q in enumerate(QUALITIES):
+        for key, table, ci in (("y", jpeg_enc.DEFAULT_AC_LENGTHS_LUMA, 0),
+                               ("cb", jpeg_enc.DEFAULT_AC_LENGTHS_CHROMA, 1),
+                               ("cr", jpeg_enc.DEFAULT_AC_LENGTHS_CHROMA, 1)):
+            host_blocks = native.trellis_quantize_native(planes[f"dct_{key}"], qt[qi, ci], table, 0.1)
+            card_blocks = t_coefs[key][qi].cpu().numpy()
+            differ += int((host_blocks != card_blocks).any(axis=-1).sum())
+            total += host_blocks.shape[0] * host_blocks.shape[1]
+        host_size = len(trellis.encode(ce.ImageData.rgb8(ref_u8), ce.EncodeRequest(q)))
+        worst_size = max(worst_size, abs(t_pts[qi].file_size - host_size) / host_size)
+    figures["trellis_blocks_differing"] = differ
+    figures["trellis_blocks"] = total
+    print(f"  tpujpeg-420-trellis: the card's DP differs from trellis_quantize_native in "
+          f"{differ} of {total} blocks ({differ / total:.3e}); file sizes within {worst_size:.4%}")
+    if differ > TRELLIS_BLOCK_SHARE * total or worst_size > TRELLIS_SIZE_TOL:
+        raise AssertionError("the card's trellis DP strays from the native DP")
+
+    # The 2048 px ladder: K5 and K6 on phase 5's routes, held at these shapes.
+    reset_launches()
+    big = evaluate_tpujpeg_sweep(big_u8, BIG_QUALITIES)
+    launches["2048"] = read_launches()
+    check_launches(f"the {BIG} px ladder, B={len(BIG_QUALITIES)} (phase 5's)", launches["2048"],
+                   launches_big)
+    if not all(np.isfinite(v) for p in big for v in p.metrics.values()):
+        raise AssertionError("a 2048 px ladder score is not finite")
+    big_cands, _ = ladder_candidates(big_u8, BIG_QUALITIES, device)
+    print(f"  K5 and K6 against their plain versions on the {BIG} px ladder's candidates")
+    k56, _, _ = phase_kernels_big(big_u8, big_cands.permute(0, 2, 3, 1).cpu().numpy(), device)
+    errors.update({f"{name}_2048": c.err for name, c in k56.items()})
+    del k56, big_cands
+
+    # The corpus ladder: four photo-statistics images at rd_calibrate's range.
+    qualities = [float(q) for q in rd_calibrate.parse_range(CLI_RANGE)]
+    images = [src.rgb for src in photo_sources(n=4, size=SIZE, seed=CLI_SEED)]
+    corpus = {mode: sweep_corpus_ladders(images, qualities, with_sizes=mode)
+              for mode in (True, "device")}
+    worst = 0.0
+    for i, rgb in enumerate(images):
+        for mode, res in corpus.items():
+            pts = evaluate_tpujpeg_sweep(rgb, qualities, with_sizes=mode)
+            if [p.file_size for p in pts] != res.sizes[i].tolist():
+                raise AssertionError(f"corpus image {i} ({mode}): sizes differ from its sweep")
+            for qi, p in enumerate(pts):
+                for k, v in p.metrics.items():
+                    worst = max(worst, rel_diff(float(res.scores[k][i, qi]), v))
+    sizes_agree("the corpus ladder", corpus[True].sizes.reshape(-1).tolist(),
+                corpus["device"].sizes.reshape(-1).tolist(), DEVICE_SIZE_TOL)
+    print(f"  the corpus ladder ({len(images)} x {len(qualities)}) equals each image's own sweep: "
+          f"largest relative difference {worst:.3e}")
+    if worst > PAIR_VS_BATCH_RTOL:
+        raise AssertionError("the corpus ladder strays from the per-image sweeps")
+    curve = corpus[True].mean_curve("ssimulacra2")
+    print(f"  mean_curve: {len(curve)} points, {curve[0][0]:.3f} bpp / {curve[0][1]:.2f} at "
+          f"q{qualities[0]:g} to {curve[-1][0]:.3f} bpp / {curve[-1][1]:.2f} at q{qualities[-1]:g}")
+
+    # Encode to a target, decoded and rescored.
+    target = encode_to_target(ref_u8, min_ssimulacra2=70.0)
+    rescored = score_jpeg_files(ref_u8, [target.data], metrics=("ssimulacra2",))[0]
+    print(f"  encode_to_target(min_ssimulacra2=70): q{target.quality:g}, {target.file_size} bytes, "
+          f"ssimulacra2 {target.metrics['ssimulacra2']!r}, rescored {rescored['ssimulacra2']!r}")
+    if (target.file_size != len(target.data) or target.metrics["ssimulacra2"] < 70.0
+            or rel_diff(rescored["ssimulacra2"], target.metrics["ssimulacra2"]) > PAIR_VS_BATCH_RTOL):
+        raise AssertionError("encode_to_target's bytes do not score as it says")
+
+    # The sessions: a preset of the zenjpeg slot with cache_dir, the whole
+    # slot through the registry, and a JPEG adapter without a device sweep.
+    # A fast path's fallback warns: here that is an error.
+    with warnings.catch_warnings(), tempfile.TemporaryDirectory() as tmp:
+        warnings.simplefilter("error", RuntimeWarning)
+        tmp = Path(tmp)
+        registry = codecs.CodecRegistry(
+            codecs.CompareConfig.new(tmp / "registry").with_formats(
+                codecs.FormatSelection(zenjpeg=True)).with_quality_levels(QUALITIES))
+        if registry.register_all() != 8:
+            raise AssertionError(f"the zenjpeg slot registered {registry.codec_ids()}")
+        config = (ce.EvalConfig.builder().report_dir(tmp / "reports").cache_dir(tmp / "cache")
+                  .metrics(ce.MetricConfig.all()).quality_levels(QUALITIES).build())
+        session = ce.EvalSession(config)
+        session.add_codec_impl(registry.codecs[0])
+        report = session.evaluate_image("ref", ce.ImageData.rgb8(ref_u8))
+        if (session.device_sweeps_run, session.device_sweep_fallbacks,
+                session.jpeg_device_decode_fallbacks) != (1, 0, 0):
+            raise AssertionError("the session did not take the device sweep")
+        for r, p in zip(report.results, exact, strict=True):
+            if (r.file_size != p.file_size or Path(r.cached_path).stat().st_size != r.file_size
+                    or rel_diff(r.metrics.ssimulacra2, p.metrics["ssimulacra2"])
+                    > PAIR_VS_BATCH_RTOL):
+                raise AssertionError(f"session row q{r.quality} differs from the ladder")
+        reg = registry.evaluate_image("ref", ce.ImageData.rgb8(ref_u8))
+        rs = registry.session
+        if (rs.device_sweeps_run, rs.device_sweep_fallbacks) != (8, 0) or len(reg.results) != 8 * len(
+                QUALITIES):
+            raise AssertionError("the registry's zenjpeg slot did not run 8 device sweeps")
+
+        class JpegOnly(codecs.CodecImpl):
+            """tpujpeg's streams through an adapter without a device sweep."""
+
+            def __init__(self):
+                self.inner = TpuJpegCodec()
+
+            def id(self):
+                return "jpeg-bytes"
+
+            def version(self):
+                return "1"
+
+            def format(self):
+                return "jpg"
+
+            def encode(self, image, request):
+                return self.inner.encode(image, request)
+
+            def decode(self, data):
+                return self.inner.decode(data)
+
+        second = ce.EvalSession(ce.EvalConfig.builder().report_dir(tmp / "r2")
+                                .metrics(ce.MetricConfig.all()).quality_levels(QUALITIES).build())
+        second.add_codec_impl(JpegOnly())
+        rows = second.evaluate_image("ref", ce.ImageData.rgb8(ref_u8))
+        if (second.jpeg_device_decodes_run, second.jpeg_device_decode_fallbacks,
+                second.device_sweeps_run, second.device_sweep_fallbacks) != (1, 0, 0, 0):
+            raise AssertionError("the JPEG adapter did not take the device decode")
+        scores_equal("the device-decode session against the ladder",
+                     [{k: getattr(r.metrics, k) for k in p.metrics} for r in rows.results],
+                     [p.metrics for p in exact], PAIR_VS_BATCH_RTOL)
+        print(f"  sessions: device_sweeps_run 1 (cache_dir: {len(list((tmp / 'cache').iterdir()))}"
+              f" artifacts), the registry's zenjpeg slot 8, jpeg_device_decodes_run 1; "
+              "every fallback counter 0")
+
+    # Timings, each the median of 5 after a warm-up.
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    figures["ladder_512_exact_ms"], figures["ladder_512_exact_ms_each"] = median_ms(
+        lambda: evaluate_tpujpeg_sweep(ref_u8, QUALITIES))
+    figures["ladder_512_peak_above_held_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    figures["ladder_512_device_ms"], _ = median_ms(
+        lambda: evaluate_tpujpeg_sweep(ref_u8, QUALITIES, with_sizes="device"))
+    figures["ladder_512_scores_only_ms"], _ = median_ms(
+        lambda: evaluate_tpujpeg_sweep(ref_u8, QUALITIES, with_sizes=False))
+    _, coefs = ladder_candidates(ref_u8, QUALITIES, device)
+    host = [coefs[k].cpu().numpy() for k in ("y", "cb", "cr")]
+    qt = _qtabs_for(QUALITIES).astype(np.uint16)[:, :, jpeg_enc.ZIGZAG]
+
+    def entropy_pass():
+        return [native.jpeg_encode_baseline(SIZE, SIZE, "420", host[0][i], host[1][i], host[2][i],
+                                            qt[i, 0], qt[i, 1]) for i in range(len(QUALITIES))]
+
+    figures["entropy_pass_512_ms"], _ = median_ms(entropy_pass)
+    figures["entropy_share_of_exact_ladder"] = (figures["entropy_pass_512_ms"]
+                                                / figures["ladder_512_exact_ms"])
+
+    def reconstruct(lam):
+        def run():
+            c, _ = ladder_candidates(ref_u8, QUALITIES, device, aq_strength=0.0,
+                                     trellis_lambda=lam)
+            return c.sum().item()
+        return run
+
+    figures["reconstruct_512_ms"], _ = median_ms(reconstruct(0.0))
+    figures["reconstruct_512_trellis_ms"], _ = median_ms(reconstruct(0.1))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    figures["ladder_2048_exact_ms"], _ = median_ms(lambda: evaluate_tpujpeg_sweep(big_u8,
+                                                                                 BIG_QUALITIES))
+    figures["ladder_2048_peak_above_held_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    figures["ladder_2048_device_ms"], _ = median_ms(
+        lambda: evaluate_tpujpeg_sweep(big_u8, BIG_QUALITIES, with_sizes="device"))
+    for mode, key in ((True, "exact"), ("device", "device")):
+        ms, _ = median_ms(lambda m=mode: sweep_corpus_ladders(images, qualities, with_sizes=m))
+        figures[f"corpus_ladder_ms_per_image_{key}"] = ms / len(images)
+    for key in ("ladder_512_exact_ms", "ladder_512_device_ms", "ladder_512_scores_only_ms",
+                "entropy_pass_512_ms", "entropy_share_of_exact_ladder", "reconstruct_512_ms",
+                "reconstruct_512_trellis_ms", "ladder_2048_exact_ms", "ladder_2048_device_ms",
+                "corpus_ladder_ms_per_image_exact", "corpus_ladder_ms_per_image_device",
+                "ladder_512_peak_above_held_gib", "ladder_2048_peak_above_held_gib"):
+        print(f"  {key}: {figures[key]!r} | {card}")
+    return {"launches": launches, "errors": errors, "figures": figures}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2688,6 +3020,21 @@ def main() -> int:
     print(f"  cli figures: {json.dumps(cli['figures'])}")
     print(f"  phase 11 wall: {cli['figures']['wall_s']:.2f} s | {card}")
     done(11, t0)
+
+    t0 = time.perf_counter()
+    print(f"[12] the device JPEG ladder, no device given | {card}")
+    ladder = phase_ladder(ref_u8, big_u8, launches, launches_big, card, device)
+    for row in rows:
+        name = row["name"]
+        row["launches_ladder_512"] = ladder["launches"]["512"][name]
+        row["launches_ladder_2048"] = ladder["launches"]["2048"][name]
+        errs = [v for k, v in ladder["errors"].items() if k in (name, f"{name}_2048")]
+        row["max_abs_err_ladder"] = max(errs) if errs else None
+        if errs:
+            row["max_abs_err"] = max(row["max_abs_err"], *errs)
+    ladder["figures"]["wall_s"] = time.perf_counter() - t0
+    print(f"  ladder figures: {json.dumps(ladder['figures'])}")
+    done(12, t0)
 
     if profiling:
         t0 = time.perf_counter()

@@ -49,28 +49,29 @@ from ..iter.codecs import build_codec
 from . import add_device_argument
 
 
-def _codec(spec: str):
+def _codec(spec: str, device="cuda"):
     """Spec: format[:subsampling[:prog|base]], avif:preset,
-    tpujpeg:xyb, or tpujpeg:trellis[:subsampling]."""
+    tpujpeg:xyb, or tpujpeg:trellis[:subsampling].  tpujpeg's analysis and
+    decode run on ``device``."""
     parts = spec.split(":")
     fmt = parts[0]
     if fmt == "avif" and len(parts) > 1:
         return build_codec("avif", preset=parts[1])
     if fmt == "tpujpeg" and len(parts) > 1 and parts[1] == "xyb":
-        return build_codec("tpujpeg", xyb=True)
+        return build_codec("tpujpeg", xyb=True, device=device)
     if fmt == "tpujpeg" and len(parts) > 1 and parts[1] == "trellis":
         return build_codec(
             "tpujpeg", trellis=True, progressive=False,
-            subsampling=parts[2] if len(parts) > 2 else "420",
+            subsampling=parts[2] if len(parts) > 2 else "420", device=device,
         )
     sub = parts[1] if len(parts) > 1 else "420"
     prog = (parts[2] != "base") if len(parts) > 2 else True
-    return build_codec(fmt, subsampling=sub, progressive=prog)
+    return build_codec(fmt, subsampling=sub, progressive=prog, device=device)
 
 
 def cmd_full_comparison(args) -> int:
     corpus = Corpus.discover(args.corpus)
-    codecs = [_codec(args.codec_a), _codec(args.codec_b)]
+    codecs = [_codec(args.codec_a, args.device), _codec(args.codec_b, args.device)]
     qualities = list(range(args.q_min, args.q_max + 1, args.q_step))
     rows = sweep_codecs(
         corpus, codecs, qualities, limit=args.limit,
@@ -84,7 +85,7 @@ def cmd_full_comparison(args) -> int:
 
 def cmd_brute_force(args) -> int:
     corpus = Corpus.discover(args.corpus)
-    codecs = [_codec(s) for s in args.codecs.split(",")]
+    codecs = [_codec(s, args.device) for s in args.codecs.split(",")]
     qualities = list(range(2, 101, 2))
     rows = sweep_codecs(
         corpus, codecs, qualities, limit=args.limit,

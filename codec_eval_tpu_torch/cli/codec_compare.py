@@ -5,12 +5,10 @@ crates/codec-compare/src/main.rs:33-386): ``run`` (corpus loop printing
 ``[i/n] name... OK``), ``single`` (one image), ``list`` (registered
 codecs), ``report`` (regenerate charts/stats from a saved corpus report
 JSON).  ``run`` and ``single`` score on ``--device``, the card by
-default.  The zenjpeg slot, which ``--formats all`` and ``--formats jpeg``
-select, needs the device JPEG ladder (ROADMAP queue 1 item 6): those
-selections exit with an error line; a comma list without it
-(``--formats jpeg,webp``) runs.
+default; the zenjpeg slot, which ``--formats all`` and ``--formats jpeg``
+select, is tpujpeg's presets, whose ladders run there too.
 
-    python -m codec_eval_tpu_torch.cli.codec_compare run CORPUS --formats jpeg,webp
+    python -m codec_eval_tpu_torch.cli.codec_compare run CORPUS --formats jpeg
 """
 
 from __future__ import annotations
@@ -61,10 +59,7 @@ def _build_registry(args, device) -> CodecRegistry:
     if args.fast_metrics:
         config.with_metrics(MetricConfig.ssimulacra2_only())
     registry = CodecRegistry(config, device=device)
-    try:
-        n = registry.register_all()
-    except NotImplementedError as e:
-        raise CodecEvalError(str(e)) from e
+    n = registry.register_all()
     if n == 0:
         raise CodecEvalError("no codecs available for the selected formats")
     return registry

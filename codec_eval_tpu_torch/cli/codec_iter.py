@@ -5,13 +5,12 @@ crates/codec-iter/src/main.rs:31-449): ``eval`` / ``sweep`` / ``baseline
 {save,show}`` subcommands, quality presets (quick=[75,85,95], standard=8
 points, dense=50..98 step 2), result tables with delta-vs-baseline columns
 and the scalar pareto score, and automatic baseline save on first run.
-Scoring runs on ``--device``, the card by default.
-
-What runs on the device JPEG ladder waits for it (ROADMAP queue 1 item 6)
-and exits with an error line: ``--format tpujpeg``, ``eval --device-sweep``
-and ``target``.
+Scoring, and tpujpeg's device work (``--format tpujpeg``, ``eval
+--device-sweep``, ``target``), run on ``--device``, the card by default.
 
     python -m codec_eval_tpu_torch.cli.codec_iter eval --corpus synthetic-photo-v1 --limit 2
+    python -m codec_eval_tpu_torch.cli.codec_iter eval --corpus synthetic-photo-v1 \
+        --format tpujpeg --device-sweep --size-mode device
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import argparse
 import sys
 from pathlib import Path
 
-from ..errors import CodecEvalError, UnsupportedFormat
+from ..errors import CodecEvalError
 from ..iter.baseline import (
     compare_with_baseline,
     load_baseline,
@@ -28,16 +27,10 @@ from ..iter.baseline import (
     save_baseline,
 )
 from ..iter.codecs import AVIF_PRESETS, AvifIterConfig, JpegIterConfig, build_codec
-from ..iter.eval import run_eval
+from ..iter.eval import run_eval, run_eval_device
 from ..iter.source import load_sources
 from ..iter.sweep import print_sweep, run_sweep
 from . import add_device_argument
-
-#: Why the device ladder's commands are refused.
-DEVICE_LADDER_WAITS = (
-    "{what} runs on the device JPEG ladder, which the PyTorch port does not have "
-    "yet (ROADMAP queue 1 item 6)"
-)
 
 QUALITY_PRESETS = {
     "quick": [75, 85, 95],
@@ -125,7 +118,15 @@ def cmd_eval(args) -> int:
         if args.format != "tpujpeg":
             print("--device-sweep requires --format tpujpeg")
             return 2
-        raise UnsupportedFormat(DEVICE_LADDER_WAITS.format(what="--device-sweep"))
+        print(
+            f"eval: tpujpeg-{args.subsampling} DEVICE sweep on "
+            f"{len(images)} images x {len(qualities)} qualities"
+        )
+        result = run_eval_device(
+            images, qualities, subsampling=args.subsampling,
+            progress=lambda s: print(f"  {s}"), trellis=args.trellis,
+            size_mode=args.size_mode, device=args.device,
+        )
     else:
         codec = build_codec(
             args.format,
@@ -134,6 +135,7 @@ def cmd_eval(args) -> int:
             preset=args.avif_preset,
             xyb=args.xyb,
             trellis=args.trellis,
+            device=args.device,
         )
         print(
             f"eval: {codec.summary} on {len(images)} images x "
@@ -173,9 +175,23 @@ def cmd_sweep(args) -> int:
         ]
     elif args.format == "avif":
         codecs = [AvifIterConfig(preset=p).build() for p in sorted(AVIF_PRESETS)]
+    elif args.format == "tpujpeg":
+        # The zenjpeg-style config grid: subsampling x colorspace x scan
+        # structure (reference: crates/codec-iter/src/config.rs:5-67).
+        from ..iter.codecs import TpuJpegIterConfig
+
+        dev = args.device
+        codecs = [
+            TpuJpegIterConfig(subsampling=s, device=dev).build()
+            for s in ("420", "444", "422", "440")
+        ] + [
+            TpuJpegIterConfig(subsampling="420", progressive=True, device=dev).build(),
+            TpuJpegIterConfig(xyb=True, device=dev).build(),
+            TpuJpegIterConfig(subsampling="420", adaptive=False, device=dev).build(),
+            TpuJpegIterConfig(subsampling="420", trellis=True, device=dev).build(),
+        ]
     else:
-        # tpujpeg's config grid waits with its encoder: build_codec raises.
-        codecs = [build_codec(args.format)]
+        codecs = [build_codec(args.format, device=args.device)]
     result = run_sweep(images, codecs, qualities, device=args.device)
     print_sweep(result)
     return 0
@@ -201,6 +217,7 @@ def cmd_baseline(args) -> int:
             preset=args.avif_preset,
             xyb=args.xyb,
             trellis=args.trellis,
+            device=args.device,
         )
         result = run_eval(images, codec, qualities, device=args.device)
         saved = save_baseline(
@@ -220,8 +237,9 @@ def cmd_baseline(args) -> int:
 def cmd_target(args) -> int:
     """Distance-targeted encode: one device ladder finds the smallest file
     meeting the given floors/ceiling, then that quality is entropy-coded.
-    No reference analog — its loop would search by re-encoding on host.
-    The ladder waits for the device JPEG encoder."""
+    No reference analog — its loop would search by re-encoding on host."""
+    from ..engine.tpu_sweep import encode_to_target
+
     if all(
         v is None
         for v in (args.min_ssim2, args.max_butteraugli, args.max_dssim,
@@ -230,7 +248,45 @@ def cmd_target(args) -> int:
         print("error: give at least one of --min-ssim2/--max-butteraugli/"
               "--max-dssim/--max-bpp", file=sys.stderr)
         return 2
-    raise UnsupportedFormat(DEVICE_LADDER_WAITS.format(what="target"))
+    images = load_sources(args.corpus, args.limit)
+    # The quick default is too coarse for targeting; use the dense grid
+    # unless the user picked a preset deliberately.
+    qualities = QUALITY_PRESETS[args.preset if args.preset != "quick" else "dense"]
+    print(
+        f"target: tpujpeg-{args.subsampling} on {len(images)} images "
+        f"(grid of {len(qualities)})"
+    )
+    print(f"\n{'image':<28} {'q':>4} {'bpp':>7} {'bytes':>9} {'ssim2':>7} {'ba':>6}")
+    out_dir = args.out
+    if out_dir is not None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+    for src in images:
+        res = encode_to_target(
+            src.rgb,
+            min_ssimulacra2=args.min_ssim2,
+            max_butteraugli=args.max_butteraugli,
+            max_dssim=args.max_dssim,
+            max_bits_per_pixel=args.max_bpp,
+            qualities=qualities,
+            subsampling=args.subsampling,
+            colorspace="xyb" if args.xyb else "ycbcr",
+            progressive=not args.no_progressive and not args.xyb,
+            trellis_lambda=0.10 if args.trellis else 0.0,
+            device=args.device,
+        )
+
+        def fmt(key, width):
+            v = res.metrics.get(key)
+            return f"{v:>{width}.2f}" if v is not None else " " * (width - 1) + "-"
+
+        print(
+            f"{src.name:<28} {res.quality:>4g} {res.bits_per_pixel:>7.3f} "
+            f"{res.file_size:>9} {fmt('ssimulacra2', 7)} {fmt('butteraugli', 6)}"
+        )
+        if out_dir is not None:
+            stem = Path(src.name).stem
+            (out_dir / f"{stem}.jpg").write_bytes(res.data)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -257,6 +313,7 @@ def main(argv=None) -> int:
     p_target.add_argument(
         "--out", type=Path, default=None, help="write the .jpg files here"
     )
+    add_device_argument(p_target)
     p_target.set_defaults(fn=cmd_target)
 
     p_sweep = sub.add_parser("sweep", help="sweep codec configs")

@@ -10,11 +10,12 @@ Each image's whole quality sweep is scored in one batch
 (``score_ladder``: SSIMULACRA2 and Butteraugli against a reference
 precomputed once) on the card unless ``--device cpu`` asks for the host,
 and per-quality corpus means reduce on the host from the per-image score
-vectors.  ``--device-sweep`` (encode, decode and score all on the device)
-runs on the device JPEG ladder, which the port does not have yet (ROADMAP
-queue 1 item 6): it exits with an error line.
+vectors.  ``--device-sweep`` runs tpujpeg's whole calibration sweep
+(encode, decode and score) on the device through
+``parallel.sweep_corpus_ladders``.
 
     python -m codec_eval_tpu_torch.cli.rd_calibrate CORPUS --range 10:2:98
+    python -m codec_eval_tpu_torch.cli.rd_calibrate CORPUS --format tpujpeg --device-sweep
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 
 from ..corpus import Corpus
 from ..engine.scoring import score_ladder as _score_ladder
-from ..errors import CodecEvalError, UnsupportedFormat
+from ..errors import CodecEvalError
 from ..iter.codecs import build_codec
 from ..metrics import MetricConfig
 from ..stats import CorpusAggregate, WEB_FRAME
@@ -154,11 +155,66 @@ RDCalibration(
 )'''
 
 
-#: Why ``--device-sweep`` is refused: it runs on the device JPEG ladder.
-DEVICE_SWEEP_WAITS = (
-    "--device-sweep runs the calibration sweep on the device JPEG ladder, which the "
-    "PyTorch port does not have yet (ROADMAP queue 1 item 6)"
-)
+def sweep_corpus_device(
+    corpus: Corpus,
+    qualities: List[int],
+    subsampling: str = "420",
+    limit: int = 0,
+    progress=print,
+    trellis: bool = False,
+    size_mode: str = "exact",
+    *,
+    device="cuda",
+) -> Dict[int, List[Tuple[float, float, float]]]:
+    """The calibration sweep's whole encode / decode / score loop
+    (reference: rd_calibrate.rs:184-216) on ``device`` through tpujpeg's
+    ladder runner (``parallel.ladder_runner``), the images grouped by
+    shape."""
+    from collections import defaultdict
+
+    import torch
+
+    from ..parallel import make_mesh, sweep_corpus_ladders
+
+    images = corpus.images[:limit] if limit else corpus.images
+    by_shape: Dict[Tuple[int, int], list] = defaultdict(list)
+    for corpus_image in images:
+        path = corpus_image.full_path(corpus.root_path)
+        try:
+            from PIL import Image
+
+            rgb = np.asarray(Image.open(path).convert("RGB"))
+        except Exception as e:  # noqa: BLE001 - skip-and-continue policy
+            progress(f"  SKIP {corpus_image.relative_path}: {e}")
+            continue
+        by_shape[rgb.shape[:2]].append(rgb)
+
+    by_quality: Dict[int, List[Tuple[float, float, float]]] = {q: [] for q in qualities}
+    mesh = make_mesh(devices=[torch.device(device)])
+    done = 0
+    total = sum(len(v) for v in by_shape.values())
+    for (h, w), rgbs in by_shape.items():
+        res = sweep_corpus_ladders(
+            rgbs,
+            [float(q) for q in qualities],
+            mesh=mesh,
+            subsampling=subsampling,
+            metrics=("ssimulacra2", "butteraugli"),
+            aq_strength=0.0 if trellis else 0.30,
+            trellis_lambda=0.10 if trellis else 0.0,
+            with_sizes="device" if size_mode == "device" else True,
+        )
+        s2 = res.scores["ssimulacra2"]
+        ba = res.scores["butteraugli"]
+        for ii in range(len(rgbs)):
+            for qi, q in enumerate(qualities):
+                if np.isfinite(s2[ii, qi]) and np.isfinite(ba[ii, qi]):
+                    by_quality[q].append(
+                        (float(res.bits_per_pixel[ii, qi]), float(s2[ii, qi]), float(ba[ii, qi]))
+                    )
+        done += len(rgbs)
+        progress(f"  [{done}/{total}] {h}x{w} group ({len(rgbs)} images)")
+    return by_quality
 
 
 def main(argv=None) -> int:
@@ -198,23 +254,36 @@ def main(argv=None) -> int:
             print("error: --device-sweep requires --format tpujpeg",
                   file=sys.stderr)
             return 2
-        if args.device_sweep:
-            raise UnsupportedFormat(DEVICE_SWEEP_WAITS)
-        codec = build_codec(
-            args.format, subsampling=args.subsampling, trellis=args.trellis,
+        codec = (
+            None
+            if args.device_sweep
+            else build_codec(
+                args.format, subsampling=args.subsampling, trellis=args.trellis,
+                device=args.device,
+            )
         )
         corpus = Corpus.discover(args.corpus)
     except CodecEvalError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
-    summary = codec.summary
+    summary = (
+        f"tpujpeg-{args.subsampling}-{'trellis' if args.trellis else 'aq'}-device"
+        if args.device_sweep
+        else codec.summary
+    )
     print(f"rd-calibrate: {summary} x {len(qualities)} qualities "
           f"on {len(corpus)} images")
     t0 = time.perf_counter()
-    by_quality = sweep_corpus(
-        corpus, codec, qualities, limit=args.limit, device=args.device
-    )
+    if args.device_sweep:
+        by_quality = sweep_corpus_device(
+            corpus, qualities, subsampling=args.subsampling, limit=args.limit,
+            trellis=args.trellis, size_mode=args.size_mode, device=args.device,
+        )
+    else:
+        by_quality = sweep_corpus(
+            corpus, codec, qualities, limit=args.limit, device=args.device
+        )
     curve = aggregate_curve(by_quality)
     if len(curve) < 3:
         print("error: not enough data for knee detection", file=sys.stderr)

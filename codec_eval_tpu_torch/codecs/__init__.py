@@ -1,7 +1,6 @@
 """Codec adapters and the comparison harness: a port of
-``codec_eval_tpu/codecs`` without its device JPEG codec (``TpuJpegCodec``,
-``decode_jpeg_device``, ``score_jpeg_files``), which waits for the device
-JPEG ladder's port."""
+``codec_eval_tpu/codecs``, with the device JPEG codec (``TpuJpegCodec``)
+and device JPEG decoding (``decode_jpeg_device``, ``score_jpeg_files``)."""
 
 from .base import STANDARD_QUALITY_LEVELS, CodecImpl, codec_color
 from .compare import CompareAgainstAll, CompareResult
@@ -15,6 +14,8 @@ from .pil_codecs import (
     jpegxl_stub,
 )
 from .jxl import JpegXlCodec
+from .jpeg_device import decode_jpeg_device, score_jpeg_files
+from .tpujpeg import TpuJpegCodec
 from .registry import CodecRegistry, CompareConfig, FormatSelection
 from .html_report import generate_html
 from .report import (
@@ -41,6 +42,9 @@ __all__ = [
     "jpegli_stub",
     "jpegxl_stub",
     "JpegXlCodec",
+    "TpuJpegCodec",
+    "decode_jpeg_device",
+    "score_jpeg_files",
     "CodecRegistry",
     "CompareConfig",
     "FormatSelection",

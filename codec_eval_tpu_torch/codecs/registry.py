@@ -4,8 +4,8 @@ Port of ``codec_eval_tpu/codecs/registry.py`` (reference:
 crates/codec-compare/src/registry.rs:14-285): a ``CompareConfig`` with a
 format selection decides which adapters register into an inner
 ``EvalSession``, which scores on ``device`` (the card unless the caller
-asks for the CPU).  The zenjpeg slot, which the JAX package fills with its
-device JPEG encoder, waits for that encoder's port and raises.
+asks for the CPU).  The zenjpeg slot is filled by ``TpuJpegCodec``'s
+presets on the same device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,6 +102,7 @@ class CodecRegistry:
             metrics=config.metrics,
             quality_levels=list(config.quality_levels),
         )
+        self.device = device
         self.session = EvalSession(eval_config, device=device)
         self.codecs: List[CodecImpl] = []
         self.skipped: List[CodecImpl] = []
@@ -126,13 +127,12 @@ class CodecRegistry:
                 count += self.register_codec(codec)
             count += self.register_codec(jpegli_stub())
         if f.zenjpeg:
-            # Dropping a requested codec would change the comparison, so
-            # the slot raises until its encoder is ported.
-            raise NotImplementedError(
-                "zenjpeg needs TpuJpegCodec, the device JPEG ladder, which the "
-                "PyTorch port does not have yet (ROADMAP queue 1 item 6); "
-                "select the formats without zenjpeg"
-            )
+            # The reference's zenjpeg slot (a jpegli-style software
+            # encoder) is filled by tpujpeg.
+            from .tpujpeg import TpuJpegCodec
+
+            for codec in TpuJpegCodec.presets(device=self.device):
+                count += self.register_codec(codec)
         if f.webp:
             count += self.register_codec(WebPCodec())
         if f.avif:

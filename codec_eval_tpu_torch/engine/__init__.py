@@ -11,6 +11,7 @@ from .session import (
     EvalConfigBuilder,
     EvalSession,
 )
+from .tpu_sweep import TpuSweepPoint, encode_to_target, evaluate_tpujpeg_sweep
 
 __all__ = [
     "assert_perception_level",
@@ -26,5 +27,8 @@ __all__ = [
     "EvalSession",
     "ImageData",
     "ImageReport",
+    "TpuSweepPoint",
+    "encode_to_target",
+    "evaluate_tpujpeg_sweep",
     "write_json",
 ]

@@ -1,9 +1,7 @@
 """codec-iter: the encoder-iteration layer (eval loop, sources, codecs,
 baselines, sweeps).
 
-Port of ``codec_eval_tpu/iter`` without ``TpuJpegIterConfig`` and
-``run_eval_device``, which run on the device JPEG ladder (ROADMAP queue 1
-item 6).
+Port of ``codec_eval_tpu/iter``.
 """
 
 from .baseline import (
@@ -14,7 +12,14 @@ from .baseline import (
     make_baseline,
     save_baseline,
 )
-from .codecs import AVIF_PRESETS, AvifIterConfig, JpegIterConfig, WebpIterConfig, build_codec
+from .codecs import (
+    AVIF_PRESETS,
+    AvifIterConfig,
+    JpegIterConfig,
+    TpuJpegIterConfig,
+    WebpIterConfig,
+    build_codec,
+)
 from .eval import Codec, EvalPoint, EvalResult, SourceImage, run_eval
 from .source import MEDIUM, SMALL, TINY, load_image, load_sources
 from .sweep import SweepResult, print_sweep, run_sweep
@@ -33,6 +38,7 @@ __all__ = [
     "SourceImage",
     "SweepResult",
     "TINY",
+    "TpuJpegIterConfig",
     "WebpIterConfig",
     "build_codec",
     "compare_with_baseline",

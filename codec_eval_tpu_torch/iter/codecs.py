@@ -5,13 +5,9 @@ crates/codec-iter/src/{config.rs,avif_config.rs,main.rs:252-295}), the
 same code for the PIL encoders: format dispatch with JPEG
 subsampling/progressive knobs and named AVIF presets, each yielding a
 ``Codec`` closure pair with a config-summary string used as the baseline
-key.
-
-Not ported yet: ``TpuJpegIterConfig``, the in-house JPEG encoder's slot
-(the reference's zenjpeg, with its XYB mode).  It runs on the device JPEG
-ladder (ROADMAP queue 1 item 6), so ``build_codec("tpujpeg")`` raises
-``UnsupportedFormat``, the error the JAX package raises when that encoder's
-native coder is missing.
+key.  ``TpuJpegIterConfig`` is the in-house JPEG encoder's slot (the
+reference's zenjpeg, with its XYB mode); its analysis and decode run on
+``device``, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,13 +20,6 @@ import numpy as np
 
 from ..errors import UnsupportedFormat
 from .eval import Codec
-
-
-#: Why ``tpujpeg`` is refused: its encoder is the device JPEG ladder.
-TPUJPEG_WAITS = (
-    "tpujpeg needs the device JPEG ladder, which the PyTorch port does not have "
-    "yet (ROADMAP queue 1 item 6); use jpeg, avif or webp"
-)
 
 
 def _pil_decode(data: bytes) -> np.ndarray:
@@ -120,6 +109,52 @@ class AvifIterConfig:
 
 
 @dataclass
+class TpuJpegIterConfig:
+    """The in-house jpegli-style encoder (``codecs.tpujpeg``) in the
+    iteration loop: the reference's zenjpeg format slot, XYB axis included
+    (crates/codec-iter/src/config.rs:5-67)."""
+
+    subsampling: str = "420"
+    adaptive: bool = True
+    xyb: bool = False
+    progressive: bool = False
+    trellis: bool = False
+    device: str = "cuda"
+
+    def summary(self) -> str:
+        # trellis replaces the AQ bias (TpuJpegCodec forces adaptive off)
+        aq = "trellis" if self.trellis else ("aq" if self.adaptive else "plain")
+        prog = "-prog" if self.progressive else ""
+        if self.xyb:
+            return f"tpujpeg-xyb-{aq}{prog}"
+        return f"tpujpeg-{self.subsampling}-{aq}{prog}"
+
+    def build(self) -> Codec:
+        from ..codecs.tpujpeg import TpuJpegCodec
+        from ..engine.image import ImageData
+        from ..engine.session import EncodeRequest
+
+        impl = TpuJpegCodec(
+            subsampling=self.subsampling,
+            adaptive=self.adaptive,
+            colorspace="xyb" if self.xyb else "ycbcr",
+            progressive=self.progressive,
+            trellis=self.trellis,
+            device=self.device,
+        )
+
+        def encode(rgb: np.ndarray, quality: int) -> bytes:
+            return impl.encode(ImageData.rgb8(rgb), EncodeRequest(float(quality)))
+
+        def decode(data: bytes) -> np.ndarray:
+            # Through the adapter: the XYB mode's channels need the opsin
+            # inverse that a plain JPEG decode does not apply.
+            return impl.decode(data).to_rgb8()
+
+        return Codec(encode=encode, decode=decode, summary=self.summary())
+
+
+@dataclass
 class WebpIterConfig:
     method: int = 4
 
@@ -147,8 +182,10 @@ def build_codec(
     webp_method: int = 4,
     xyb: bool = False,
     trellis: bool = False,
+    device="cuda",
 ) -> Codec:
-    """Format dispatch.  reference: crates/codec-iter/src/main.rs:252-295."""
+    """Format dispatch.  reference: crates/codec-iter/src/main.rs:252-295.
+    ``device`` is where tpujpeg's analysis and decode run."""
     fmt = fmt.lower()
     if fmt in ("jpeg", "jpg"):
         return JpegIterConfig(subsampling=subsampling, progressive=progressive).build()
@@ -157,5 +194,12 @@ def build_codec(
     if fmt == "webp":
         return WebpIterConfig(method=webp_method).build()
     if fmt == "tpujpeg":
-        raise UnsupportedFormat(TPUJPEG_WAITS)
+        return TpuJpegIterConfig(
+            subsampling=subsampling, xyb=xyb,
+            # trellis is baseline-only (its rate model is the sequential
+            # (run, size) alphabet); it overrides the progressive default.
+            progressive=progressive and not trellis,
+            trellis=trellis,
+            device=device,
+        ).build()
     raise UnsupportedFormat(f"unknown format '{fmt}' (jpeg|avif|webp|tpujpeg)")

@@ -7,10 +7,8 @@ run that scores every quality of an image in one ``ssimulacra2_batch`` call
 on the device (K1 at every scale on the card), sharing the image's
 reference precompute across its ladder.  Host encode/decode of the next
 image overlaps the device's scoring of the current one (a one-slot pipeline).
-
-Not ported yet: ``run_eval_device``, the device-resident JPEG ladder.  It
-waits for the device JPEG encoder (``kernels/jpeg_enc.py``,
-``engine/tpu_sweep.py``), which the port does not have.
+``run_eval_device`` runs tpujpeg's whole ladder on the device instead
+(``engine.tpu_sweep``).
 """
 
 from __future__ import annotations
@@ -142,3 +140,60 @@ def run_eval(
 
     total_ms = int((time.perf_counter() - t_start) * 1000)
     return EvalResult(config_summary=codec.summary, points=points, total_ms=total_ms)
+
+
+def run_eval_device(
+    images: Sequence[SourceImage],
+    qualities: Sequence[int],
+    subsampling: str = "420",
+    adaptive: bool = True,
+    progress: Optional[Callable[[str], None]] = None,
+    trellis: bool = False,
+    size_mode: str = "exact",
+    *,
+    device="cuda",
+) -> EvalResult:
+    """tpujpeg's ladder on ``device`` per image (``engine.tpu_sweep``): the
+    encode transform, the decode reconstruction and SSIMULACRA2 there.
+    size_mode="exact" entropy-codes the fetched coefficients on the host;
+    "device" takes the sizes from device rate statistics
+    (``kernels.jpeg_rate``), fetching only packed symbol counts.  The
+    reference's loop round-trips every candidate through host RAM
+    (crates/codec-iter/src/eval.rs:151); this has no analog there."""
+    from ..engine.tpu_sweep import evaluate_tpujpeg_sweep
+
+    if size_mode not in ("exact", "device"):
+        raise ValueError(f"size_mode must be 'exact' or 'device', got {size_mode!r}")
+    aq = 0.0 if trellis else (0.30 if adaptive else 0.0)
+    mode = "trellis" if trellis else ("aq" if adaptive else "plain")
+    summary = f"tpujpeg-{subsampling}-{mode}-device"
+    t_start = time.perf_counter()
+    points: List[EvalPoint] = []
+    for i, src in enumerate(images):
+        t0 = time.perf_counter()
+        pts = evaluate_tpujpeg_sweep(
+            src.rgb,
+            [float(q) for q in qualities],
+            subsampling=subsampling,
+            aq_strength=aq,
+            metrics=("ssimulacra2",),
+            trellis_lambda=0.10 if trellis else 0.0,
+            with_sizes="device" if size_mode == "device" else True,
+            device=device,
+        )
+        ladder_ms = int((time.perf_counter() - t0) * 1000)
+        for p in pts:
+            points.append(
+                EvalPoint(
+                    image=src.name,
+                    quality=int(p.quality),
+                    bpp=p.bits_per_pixel,
+                    ssim2=p.metrics["ssimulacra2"],
+                    size_bytes=p.file_size,
+                    encode_ms=ladder_ms // max(len(pts), 1),
+                )
+            )
+        if progress:
+            progress(f"[{i + 1}/{len(images)}] {src.name}")
+    total_ms = int((time.perf_counter() - t_start) * 1000)
+    return EvalResult(config_summary=summary, points=points, total_ms=total_ms)

@@ -7,9 +7,11 @@ from .corpus_runner import (
     score_staged,
     stage_pairs_sharded,
 )
+from .ladder_runner import CorpusLadders, sweep_corpus_ladders
 from .mesh import Mesh, make_mesh, shard_batch, sharded_masked_score_fn, sharded_score_fn
 
 __all__ = [
+    "CorpusLadders",
     "CorpusScores",
     "Mesh",
     "StagedPairs",
@@ -20,4 +22,5 @@ __all__ = [
     "sharded_masked_score_fn",
     "sharded_score_fn",
     "stage_pairs_sharded",
+    "sweep_corpus_ladders",
 ]

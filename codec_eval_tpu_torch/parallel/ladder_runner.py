@@ -1,0 +1,162 @@
+"""Corpus-scale tpujpeg ladders on a device mesh.
+
+Port of ``codec_eval_tpu/parallel/ladder_runner.py``: the corpus form of
+``engine.tpu_sweep``, the device replacement for the reference's
+calibration hot path (reference: crates/codec-compare/src/rd_calibrate.rs:
+184-216, rayon threads fanning encodes and CPU metrics over a corpus).
+Each image's whole ladder (encode, decode, score) runs on a device of the
+mesh's batch axis, and only quantized coefficients, or with
+``with_sizes="device"`` their packed symbol counts, come back to the host.
+
+On one H100 the mesh is one device.  JAX pads each chunk to a multiple of
+the batch axis and unrolls it per shard; eager PyTorch scores no padded
+repeat.  With exact sizes a one-worker pool entropy-codes each image's
+ladder while the device scores it and the images after it.  The
+multi-process form (``multihost``) waits for ROADMAP queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .mesh import make_mesh
+
+__all__ = ["CorpusLadders", "sweep_corpus_ladders", "LADDER_SCORE_PX"]
+
+#: Candidate pixels per scoring call: a ladder's quality axis is scored in
+#: chunks of at most this many pixels (the JAX package's default), which
+#: bounds the scorer's temporaries at large image sizes.
+LADDER_SCORE_PX = 21_000_000
+
+_METRICS = ("dssim", "ssimulacra2", "butteraugli", "psnr")
+
+
+@dataclass
+class CorpusLadders:
+    """Ladder scores and sizes for N images x n_q qualities (input order)."""
+
+    qualities: List[float]
+    scores: Dict[str, np.ndarray]  # metric -> (N, n_q)
+    sizes: Optional[np.ndarray]  # (N, n_q) int64 bytes, or None
+    bits_per_pixel: Optional[np.ndarray]  # (N, n_q), or None
+
+    def mean_curve(self, metric: str) -> List[tuple]:
+        """Corpus-mean (bpp, score) per quality: rd-calibrate's aggregation
+        (reference: rd_calibrate.rs:240-260)."""
+        if self.bits_per_pixel is None:
+            raise ValueError("sizes were not computed (with_sizes=False)")
+        m = self.scores[metric]
+        return [
+            (float(self.bits_per_pixel[:, qi].mean()), float(m[:, qi].mean()))
+            for qi in range(m.shape[1])
+        ]
+
+
+def sweep_corpus_ladders(
+    images: Sequence[np.ndarray],
+    qualities: Sequence[float],
+    mesh=None,
+    subsampling: str = "420",
+    aq_strength: float = 0.30,
+    metrics: Sequence[str] = _METRICS,
+    with_sizes: "bool | str" = True,
+    images_per_chunk: int = 8,
+    trellis_lambda: float = 0.0,
+    multihost: bool = False,
+) -> CorpusLadders:
+    """tpujpeg quality ladders of a same-size (H, W, 3) u8 corpus, on the
+    devices of ``mesh``'s batch axis (every CUDA device by default; an
+    error without one; ``make_mesh(devices=[torch.device("cpu")])`` runs on
+    the host).  Image i runs on device i mod n.
+
+    Images go in chunks of ``images_per_chunk`` (scaled down by area above
+    512 x 512, as in JAX).  with_sizes="device" reduces each ladder to
+    packed symbol counts on its device (entropy-exact sizes, 0xFF stuffing
+    estimated); True entropy-codes the fetched coefficients on the host
+    for exact bytes; False scores only.
+    """
+    from ..engine.scoring import build_precompute, fetch_scores, score_chunk
+    from ..engine.tpu_sweep import _qtabs_for, _size_mode
+    from ..kernels import jpeg_enc as _je
+    from ..kernels import jpeg_rate as _jr
+    from ..metrics import MetricConfig
+    from ..utils import native as _native
+
+    size_mode = _size_mode(with_sizes)
+    if multihost:
+        raise NotImplementedError(
+            "multihost ladders are not ported: ROADMAP queue 1 item 5 (multi-device)"
+        )
+    if not images:
+        raise ValueError("no images")
+    h, w = images[0].shape[:2]
+    for im in images:
+        if im.shape[:2] != (h, w):
+            raise ValueError("sweep_corpus_ladders requires same-size images")
+    if mesh is None:
+        mesh = make_mesh(n_space=1)
+    devices = list(mesh.devices[:, 0])
+    n_q = len(qualities)
+    config = MetricConfig(**{m: m in metrics for m in _METRICS})
+    q_chunk = max(1, min(n_q, LADDER_SCORE_PX // (h * w)))
+    qtabs = _qtabs_for(qualities)
+    qt_zz = [tuple(t[_je.ZIGZAG] for t in _je.quality_to_qtables(q)) for q in qualities]
+    if h * w > 512 * 512:
+        images_per_chunk = max(1, images_per_chunk * (512 * 512) // (h * w))
+
+    n = len(images)
+    all_scores: Dict[str, List[np.ndarray]] = {}
+    sizes = np.zeros((n, n_q), dtype=np.int64) if size_mode != "none" else None
+    encodes: List[tuple] = []
+
+    def encode(cy, ccb, ccr, qi: int) -> int:
+        ql, qc = qt_zz[qi]
+        return len(_native.jpeg_encode_baseline(w, h, subsampling, cy[qi], ccb[qi], ccr[qi],
+                                                ql, qc))
+
+    def ladder(i: int, size_pool: ThreadPoolExecutor) -> tuple:
+        """Image i's scores (on its device), and its packed statistics with
+        device sizes.  With exact sizes its coefficients are fetched and
+        handed to the one-worker entropy pool before its scoring is queued,
+        so the host coder runs while the device scores this image and the
+        next ones."""
+        dev = devices[i % len(devices)]
+        img = torch.from_numpy(np.require(images[i], np.uint8, "CW")).to(dev)
+        cands, coefs = _je.reconstruct_sweep(
+            img, torch.from_numpy(qtabs).to(dev), aq_strength, subsampling,
+            with_coefs=size_mode != "none", trellis_lambda=float(trellis_lambda),
+        )
+        stats = None
+        if size_mode == "device":
+            stats = _jr.ladder_rate_stats(coefs["y"], coefs["cb"], coefs["cr"], subsampling)
+        elif size_mode == "exact":
+            host = [coefs[k].cpu().numpy() for k in ("y", "cb", "cr")]
+            encodes.append((i, [size_pool.submit(encode, *host, qi) for qi in range(n_q)]))
+        pre = build_precompute(img, config)
+        parts = [score_chunk(pre, cands[qs:qs + q_chunk], config) for qs in range(0, n_q, q_chunk)]
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}, stats
+
+    with ThreadPoolExecutor(max_workers=1) as size_pool:
+        for start in range(0, n, images_per_chunk):
+            rows = [ladder(i, size_pool) for i in range(start, min(start + images_per_chunk, n))]
+            chunk = fetch_scores({k: torch.stack([s[k].to(devices[0]) for s, _ in rows])
+                                  for k in rows[0][0]})
+            for k, v in chunk.items():
+                all_scores.setdefault(k, []).append(v)
+            if size_mode == "device":
+                for ii, (_, st) in enumerate(rows):
+                    sizes[start + ii] = _jr.size_estimates_from_packed(st.cpu().numpy())
+        for i, futures in encodes:
+            sizes[i] = [f.result() for f in futures]
+
+    return CorpusLadders(
+        qualities=[float(q) for q in qualities],
+        scores={k: np.concatenate(v) for k, v in all_scores.items()},
+        sizes=sizes,
+        bits_per_pixel=(sizes * 8.0 / (h * w)) if sizes is not None else None,
+    )

@@ -1,9 +1,8 @@
 """The port's command-line tools against the JAX package's, on the CPU.
 
-The cases of ``tests/test_cli.py`` and ``tests/test_cli_values.py`` whose
-paths do not need the device JPEG ladder (ROADMAP queue 1 item 6) run
-through both packages' ``main`` on the same inputs, the port's scoring
-commands with ``--device cpu``:
+The cases of ``tests/test_cli.py`` and ``tests/test_cli_values.py`` run
+through both packages' ``main`` on the same inputs, the port's commands
+that do device work with ``--device cpu``:
 
 - exit codes, and the printed text with every number in place: integers
   equal, each printed decimal within one unit of its last digit plus the
@@ -14,15 +13,11 @@ commands with ``--device cpu``:
   5e-4);
 - the JAX tests' own value checks, on the port's output.
 
-The comparison tools use ``--formats jpeg,webp``: ``jpeg`` and ``all``
-select the zenjpeg slot, whose encoder is the device JPEG ladder, and the
-port exits 1 with an error line for them.  The JAX session decodes an
-adapter's JPEG streams with its own device decoder when the native parser
-is built; the port decodes them with libjpeg through PIL until it has that
-decoder, so the JAX run here takes PIL's decode too.  The paths that wait
-for the ladder (``tpujpeg``, ``--device-sweep``, ``target``) exit as the
-JAX tools exit when its native coder is missing, with a message naming the
-item.
+Both sessions decode an adapter's JPEG streams with their device JPEG
+decoders (the port's on the CPU here).  The device JPEG ladder's paths
+(``--format tpujpeg``, ``--device-sweep``, ``target``, and the zenjpeg
+slot of ``--formats jpeg|all``) run in both packages and write the same
+files.
 """
 
 import csv
@@ -56,7 +51,6 @@ TIERS = {
     "dssim": dict(rtol=1e-5, atol=1e-5),
     "butteraugli": dict(rtol=5e-4, atol=0.0),
 }
-ITEM_6 = "ROADMAP queue 1 item 6"
 CSV_ROWS = (
     "image,codec,quality,bpp,ssimulacra2\n"
     "a,x,50,1.0,70\na,x,90,2.0,90\na,y,50,0.9,72\na,y,90,1.8,91\n"
@@ -79,14 +73,6 @@ def corpus(tmp_path_factory):
         ).astype(np.uint8)
         Image.fromarray(img).save(root / f"im{i}.png")
     return root
-
-
-@pytest.fixture
-def pil_jpeg_decode(monkeypatch):
-    """The JAX session decodes adapters' JPEG streams through PIL, as the port does."""
-    from codec_eval_tpu.codecs import jpeg_device
-
-    monkeypatch.setattr(jpeg_device, "is_available", lambda: False)
 
 
 @dataclass
@@ -243,28 +229,46 @@ def test_codec_iter_sweep_and_baseline_save_show(corpus, tmp_path, capsys):
 
 def test_codec_iter_device_ladder_paths_wait_for_item_6(corpus, tmp_path, capsys):
     """``tpujpeg``, ``eval --device-sweep`` and ``target`` run on the device
-    JPEG ladder: the port exits 1, the JAX tools' code for a missing
-    native coder, naming the item; the argument errors exit 2 as in JAX."""
+    JPEG ladder in both packages: the same exit codes, tables and baseline
+    files; the argument errors exit 2 as in JAX."""
     base = ["--corpus", str(corpus), "--limit", "2", "--preset", "quick"]
-    cpu = ["--device", "cpu"]
     cases = [
-        ["eval", *base, "--format", "tpujpeg", *cpu],
-        ["eval", *base, "--format", "tpujpeg", "--device-sweep", *cpu],
-        ["sweep", *base, "--format", "tpujpeg", *cpu],
-        ["baseline", "save", *base, "--format", "tpujpeg", *cpu],
-        ["target", *base, "--min-ssim2", "75"],
+        (["eval", *base, "--format", "tpujpeg"], (TOTAL_MS, ENC_MS_COLUMN)),
+        (["eval", *base, "--format", "tpujpeg", "--device-sweep"], (TOTAL_MS, ENC_MS_COLUMN)),
+        (["eval", *base, "--format", "tpujpeg", "--device-sweep", "--size-mode", "device",
+          "--trellis"], (TOTAL_MS, ENC_MS_COLUMN)),
+        (["sweep", *base, "--format", "tpujpeg"], (r" +\d+ms", )),
+        (["baseline", "save", *base, "--format", "tpujpeg", "--xyb"], ()),
+        (["target", *base, "--min-ssim2", "75", "--max-bpp", "3"], ()),
     ]
-    for argv in cases:
-        assert t_iter.main(argv + ["--baseline-dir", str(tmp_path / "b")]) == 1
-        cap = capsys.readouterr()
-        assert cap.err.startswith("error: ") and ITEM_6 in cap.err, (argv, cap.err)
-    assert not (tmp_path / "b").exists()
+    for argv, masks in cases:
+        runs = run_both(capsys, tmp_path, j_iter, t_iter,
+                        lambda d, a=argv: a + ["--baseline-dir", d / "b"]
+                        if a[0] != "target" else a + ["--out", d / "out"])
+        assert runs[0].rc == runs[1].rc == 0, (argv, runs[1].err)
+        assert runs[1].err == runs[0].err == ""
+        assert_same_text(runs[1].out, runs[0].out, masks=masks)
+        assert files_under(runs[1].dir) == files_under(runs[0].dir)
+    # The baselines' points and the target's files.
+    port, jax_dir = tmp_path / "port", tmp_path / "jax"
+    for name in files_under(port / "b"):
+        got = json.loads((port / "b" / name).read_text())
+        want = json.loads((jax_dir / "b" / name).read_text())
+        assert got["config_summary"] == want["config_summary"]
+        for g, w in zip(got["points"], want["points"], strict=True):
+            assert (g["image"], g["quality"], g["size_bytes"]) == (
+                w["image"], w["quality"], w["size_bytes"])
+            np.testing.assert_allclose(g["ssim2"], w["ssim2"], **TIERS["ssimulacra2"])
+    assert {"tpujpeg-420-aq-device.json", "tpujpeg-420-trellis-device.json",
+            "tpujpeg-xyb-aq-prog.json", "tpujpeg-420-aq-prog.json"} <= set(files_under(port / "b"))
+    for name in files_under(port / "out"):
+        assert (port / "out" / name).read_bytes() == (jax_dir / "out" / name).read_bytes()
+    assert len(files_under(port / "out")) == 2
 
     # Argument errors, as in JAX: --device-sweep without tpujpeg, target
     # without a floor (tests/test_cli.py, tests/test_cli_values.py).
     for argv in (["eval", *base, "--format", "jpeg", "--device-sweep"], ["target", *base]):
-        runs = run_both(capsys, tmp_path, j_iter, t_iter, lambda d, a=argv: a,
-                        device=argv[0] != "target")
+        runs = run_both(capsys, tmp_path, j_iter, t_iter, lambda d, a=argv: a)
         assert runs[0].rc == runs[1].rc == 2
         assert (runs[1].out, runs[1].err) == (runs[0].out, runs[0].err)
 
@@ -376,7 +380,7 @@ def _corpus_results(path: Path) -> list:
     return [(img["name"], r) for img in data["images"] for r in img["results"]]
 
 
-def test_codec_compare_run_equals_jax(corpus, tmp_path, capsys, pil_jpeg_decode):
+def test_codec_compare_run_equals_jax(corpus, tmp_path, capsys):
     """``tests/test_cli.py::test_codec_compare_run`` with ``jpeg,webp``, all
     perceptual metrics."""
     runs = run_both(capsys, tmp_path, j_compare, t_compare, lambda d: [
@@ -403,8 +407,14 @@ def test_codec_compare_run_equals_jax(corpus, tmp_path, capsys, pil_jpeg_decode)
         assert json_keys(g) == json_keys(json.loads((jax_run.dir / "reports" / name).read_text()))
 
     # The written DSSIM against JAX's f64 form, on the same candidates: each
-    # adapter's stream again (the same size as the written one) and decoded.
-    from codec_eval_tpu_torch.codecs import CodecRegistry, CompareConfig, FormatSelection
+    # adapter's stream again (the same size as the written one), decoded as
+    # the session decodes it (JPEG streams on the device).
+    from codec_eval_tpu_torch.codecs import (
+        CodecRegistry,
+        CompareConfig,
+        FormatSelection,
+        decode_jpeg_device,
+    )
     from codec_eval_tpu_torch.engine.image import ImageData
     from codec_eval_tpu_torch.engine.session import EncodeRequest
 
@@ -421,7 +431,8 @@ def test_codec_compare_run_equals_jax(corpus, tmp_path, capsys, pil_jpeg_decode)
             impl = impls[r["codec_id"]]
             stream = impl.encode(data, EncodeRequest(quality=r["quality"]))
             assert len(stream) == r["file_size"]
-            cands.append(impl.decode(stream).to_rgb8_srgb())
+            cands.append(decode_jpeg_device(stream, device="cpu") if impl.format() == "jpg"
+                         else impl.decode(stream).to_rgb8_srgb())
         np.testing.assert_allclose([r["metrics"]["dssim"] for r in cells],
                                    jax_dssim_x64(ref, np.stack(cands)), rtol=1e-6, atol=0)
 
@@ -429,20 +440,30 @@ def test_codec_compare_run_equals_jax(corpus, tmp_path, capsys, pil_jpeg_decode)
 @pytest.mark.parametrize("formats", ["jpeg", "all"])
 @pytest.mark.parametrize("cmd", ["run", "list"])
 def test_codec_compare_zenjpeg_waits_for_item_6(corpus, tmp_path, capsys, formats, cmd):
-    """``--formats jpeg`` and ``all`` select zenjpeg, whose encoder is the
-    device JPEG ladder: an error line and exit 1, JAX's path for a
-    ``CodecEvalError``; nothing is written."""
-    argv = [cmd] + ([str(corpus), "--device", "cpu"] if cmd == "run" else []) + [
-        "--formats", formats, "--output", str(tmp_path / "reports")]
-    assert t_compare.main(argv) == 1
-    cap = capsys.readouterr()
-    assert cap.out == ""
-    assert cap.err.startswith("error: zenjpeg needs") and ITEM_6 in cap.err
-    assert cap.err.count("\n") == 1
-    assert not (tmp_path / "reports").exists()
+    """``--formats jpeg`` and ``all`` select zenjpeg, tpujpeg's eight
+    presets, whose ladders run on the device in both packages: the same
+    listing, table and reports."""
+    runs = run_both(capsys, tmp_path, j_compare, t_compare, lambda d: (
+        [cmd] + ([corpus, "--qualities", "60,90", "--fast-metrics", "--name", "z"]
+                 if cmd == "run" else []) + ["--formats", formats, "--output", d / "reports"]),
+        device=cmd == "run")
+    jax_run, port_run = runs
+    assert jax_run.rc == port_run.rc == 0
+    assert port_run.err == jax_run.err
+    assert_same_text(port_run.out, jax_run.out, masks=(STATS_ENC_MS,))
+    assert "tpujpeg-420-aq" in port_run.out and "tpujpeg-xyb-trellis" in port_run.out
+    assert files_under(port_run.dir) == files_under(jax_run.dir)
+    if cmd == "run":
+        got = _corpus_results(port_run.dir / "reports" / "z.json")
+        want = _corpus_results(jax_run.dir / "reports" / "z.json")
+        assert len(got) == len(want) >= 2 * 12 * 2  # 4 PIL JPEG + 8 tpujpeg codecs
+        for (name, g), (jname, w) in zip(got, want, strict=True):
+            assert (name, g["codec_id"], g["quality"], g["file_size"]) == (
+                jname, w["codec_id"], w["quality"], w["file_size"])
+            assert_scores(g["metrics"], w["metrics"])
 
 
-def test_codec_compare_single_and_report_values(corpus, tmp_path, capsys, pil_jpeg_decode):
+def test_codec_compare_single_and_report_values(corpus, tmp_path, capsys):
     """``tests/test_cli_values.py::test_codec_compare_single_and_report_values``
     with ``jpeg,webp``: ``single``'s table and JSON equal JAX's, and
     ``report`` regenerates the same statistics from the saved corpus JSON."""
@@ -493,7 +514,9 @@ def test_codec_compare_single_and_report_values(corpus, tmp_path, capsys, pil_jp
 def test_codec_compare_csv_matches_direct_kernel(corpus, tmp_path, capsys):
     """``tests/test_cli_values.py::test_codec_compare_csv_matches_direct_kernel``:
     a CSV row of the port's ``run`` against the port's single-pair
-    SSIMULACRA2 and the JAX package's on the same PIL-decoded pair."""
+    SSIMULACRA2 and the JAX package's on the same pair, decoded as the
+    session decodes it (the device JPEG decode, within one code value of
+    JAX's)."""
     import io
 
     import jax.numpy as jnp
@@ -513,7 +536,12 @@ def test_codec_compare_csv_matches_direct_kernel(corpus, tmp_path, capsys):
     buf = io.BytesIO()
     Image.fromarray(ref).save(buf, "JPEG", quality=85, subsampling=2, progressive=True,
                               optimize=True)
-    dec = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    from codec_eval_tpu.codecs.jpeg_device import decode_jpeg_device as jax_decode
+    from codec_eval_tpu_torch.codecs import decode_jpeg_device
+    from test_torch_jpeg_enc import assert_candidates_close
+
+    dec = decode_jpeg_device(buf.getvalue(), device="cpu")
+    assert_candidates_close(dec, jax_decode(buf.getvalue()))
     mine = calculate_ssimulacra2(ref, dec, device="cpu")
     want = float(jax_ssimulacra2(jnp.asarray(ref), jnp.asarray(dec)))
     assert mine == pytest.approx(want, rel=1e-5)
@@ -566,14 +594,17 @@ def test_codec_analyze_pipeline_equals_jax(corpus, tmp_path, capsys):
         assert_same_text(runs[1].out, runs[0].out, atol=1e-4)
 
 
-def test_codec_analyze_tpujpeg_waits_for_item_6(corpus, tmp_path, capsys):
-    for spec in ("tpujpeg", "tpujpeg:xyb", "tpujpeg:trellis:444"):
-        argv = ["full-comparison", str(corpus), "--codec-b", spec,
-                "--output", str(tmp_path / "fc.csv"), "--device", "cpu"]
-        assert t_analyze.main(argv) == 1
-        cap = capsys.readouterr()
-        assert cap.err.startswith("error: tpujpeg needs") and ITEM_6 in cap.err
-    assert not (tmp_path / "fc.csv").exists()
+@pytest.mark.parametrize("spec", ["tpujpeg", "tpujpeg:xyb", "tpujpeg:trellis:444"])
+def test_codec_analyze_tpujpeg_waits_for_item_6(corpus, tmp_path, capsys, spec):
+    """``tpujpeg`` specs run in both packages: the same comparison CSV."""
+    runs = run_both(capsys, tmp_path, j_analyze, t_analyze, lambda d: [
+        "full-comparison", corpus, "--codec-b", spec, "--q-min", "40", "--q-max", "90",
+        "--q-step", "25", "--output", d / "fc.csv"])
+    assert runs[0].rc == runs[1].rc == 0
+    assert_same_text(runs[1].out, runs[0].out)
+    got, want = read_csv(runs[1].dir / "fc.csv"), read_csv(runs[0].dir / "fc.csv")
+    assert got[0] == want[0] and len(got) == len(want) == 1 + 2 * 2 * 3
+    assert_same_csv(runs[1].dir / "fc.csv", runs[0].dir / "fc.csv", timings=("encode_ms",))
 
 
 # -- rd-calibrate -------------------------------------------------------------
@@ -613,20 +644,30 @@ def test_rd_calibrate_knee_geometry_equals_jax(corpus, tmp_path, capsys):
     assert f"bpp={s2_bpp:.4f}" in (port_run.dir / "cal" / "calibration.py").read_text()
 
 
-def test_rd_calibrate_device_sweep_waits_for_item_6(corpus, tmp_path, capsys):
+@pytest.mark.parametrize("extra", [["--device-sweep"], ["--device-sweep", "--size-mode", "device",
+                                                     "--trellis"], []],
+                         ids=["device-sweep", "device-sizes-trellis", "host-ladder"])
+def test_rd_calibrate_device_sweep_waits_for_item_6(corpus, tmp_path, capsys, extra):
     """``--device-sweep`` without tpujpeg is an argument error (2) as in
-    JAX; with it, and ``--format tpujpeg`` alone, the port exits 1 naming
-    the item, before anything is scored or written."""
+    JAX; with ``--format tpujpeg`` (on the device ladder or through the
+    codec on the host) both packages write the same calibration."""
     runs = run_both(capsys, tmp_path, j_rd, t_rd, lambda d: [
-        corpus, "--device-sweep", "--output", d / "cal"])
+        corpus, "--device-sweep", "--output", d / "bad"])
     assert runs[0].rc == runs[1].rc == 2
     assert (runs[1].out, runs[1].err) == (runs[0].out, runs[0].err)
-    for extra in (["--device-sweep", "--format", "tpujpeg"], ["--format", "tpujpeg"]):
-        argv = [str(corpus), "--output", str(tmp_path / "cal"), *extra, "--device", "cpu"]
-        assert t_rd.main(argv) == 1
-        cap = capsys.readouterr()
-        assert cap.out == "" and cap.err.startswith("error: ") and ITEM_6 in cap.err
-    assert not (tmp_path / "cal").exists()
+    runs = run_both(capsys, tmp_path, j_rd, t_rd, lambda d: [
+        corpus, "--format", "tpujpeg", "--range", "30:10:90", *extra, "--output", d / "cal"])
+    jax_run, port_run = runs
+    assert jax_run.rc == port_run.rc == 0, port_run.err
+    assert_same_text(port_run.out, jax_run.out, masks=(r"^sweep complete in [\d.]+s$",))
+    assert files_under(port_run.dir) == files_under(jax_run.dir) == [
+        "cal/calibration.json", "cal/calibration.py", "cal/rd_curve.svg"]
+    got = json.loads((port_run.dir / "cal" / "calibration.json").read_text())
+    want = json.loads((jax_run.dir / "cal" / "calibration.json").read_text())
+    assert (got["codec"], got["image_count"]) == (want["codec"], want["image_count"])
+    for metric, tier in (("ssimulacra2", 1e-5), ("butteraugli", 5e-4)):
+        assert got[metric]["bpp"] == want[metric]["bpp"]
+        np.testing.assert_allclose(got[metric]["score"], want[metric]["score"], rtol=tier)
 
 
 # -- every tool ---------------------------------------------------------------
@@ -672,7 +713,7 @@ LEAF_COMMANDS = [
     (t_iter, ["eval"], True),
     (t_iter, ["sweep"], True),
     (t_iter, ["baseline", "save"], True),
-    (t_iter, ["target"], False),
+    (t_iter, ["target"], True),
     (t_iter, ["baseline", "show"], False),
     (t_rd, [], True),
     (t_compare, ["run"], True),

@@ -46,12 +46,13 @@ def test_codec_module_is_the_jax_code(name):
 
 
 def test_codecs_exports_follow_jax_without_the_device_jpeg_codec():
+    """The exports are JAX's, the device JPEG codec's included."""
     import codec_eval_tpu.codecs as jc
     import codec_eval_tpu_torch.codecs as tc
 
-    waiting = {"TpuJpegCodec", "decode_jpeg_device", "score_jpeg_files"}
-    assert set(tc.__all__) == set(jc.__all__) - waiting
-    assert not any(hasattr(tc, name) for name in waiting)
+    device_jpeg = {"TpuJpegCodec", "decode_jpeg_device", "score_jpeg_files"}
+    assert set(tc.__all__) == set(jc.__all__)
+    assert all(hasattr(tc, name) for name in device_jpeg)
 
 
 # -- the cases of tests/test_codec_adapters.py ------------------------------
@@ -390,26 +391,34 @@ def test_compare_against_all_needs_callbacks_and_a_corpus(tmp_path):
 
 
 def test_registry_zenjpeg_waits_for_the_device_jpeg_ladder(tmp_path):
-    """A registry asked for zenjpeg raises, naming where its encoder is
-    queued, rather than running a comparison without it."""
-    from codec_eval_tpu_torch.codecs import CodecRegistry, CompareConfig, FormatSelection
+    """The zenjpeg slot registers tpujpeg's eight presets, as JAX's does,
+    on the registry's device; selections without it register none."""
+    import codec_eval_tpu.codecs as jc
+    from codec_eval_tpu_torch.codecs import (
+        CodecRegistry,
+        CompareConfig,
+        FormatSelection,
+        TpuJpegCodec,
+    )
 
-    for formats in (FormatSelection.all(), FormatSelection.jpeg_only(),
-                    FormatSelection(zenjpeg=True)):
+    for formats, jformats in ((FormatSelection.all(), jc.FormatSelection.all()),
+                              (FormatSelection.jpeg_only(), jc.FormatSelection.jpeg_only()),
+                              (FormatSelection(zenjpeg=True), jc.FormatSelection(zenjpeg=True))):
         registry = CodecRegistry(CompareConfig.new(tmp_path).with_formats(formats), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-            registry.register_all()
+        want = jc.CodecRegistry(jc.CompareConfig.new(tmp_path / "jax").with_formats(jformats))
+        assert registry.register_all() == want.register_all()
+        assert registry.codec_ids() == want.codec_ids()
+        tpujpeg = [c for c in registry.codecs if isinstance(c, TpuJpegCodec)]
+        assert len(tpujpeg) == 8 and {c.device for c in tpujpeg} == {"cpu"}
     registry = CodecRegistry(CompareConfig.new(tmp_path).with_formats(FormatSelection.next_gen()),
                              device="cpu")
     assert registry.register_all() == len(registry.codec_ids()) > 0
-    assert "zenjpeg" not in " ".join(registry.codec_ids())
+    assert not any(i.startswith("tpujpeg") for i in registry.codec_ids())
 
 
 def test_registry_evaluates_and_writes_like_jax(tmp_path):
-    """WebP through both registries.  (A JPEG adapter would not compare:
-    the JAX session decodes an adapter's JPEG streams with its own device
-    decoder, which the port gains with the device JPEG ladder; until then
-    the port decodes them with libjpeg through PIL.)"""
+    """WebP through both registries.  (JPEG adapters, which both sessions
+    decode on their devices, are compared in ``test_torch_ladder.py``.)"""
     import codec_eval_tpu.codecs as jc
     import codec_eval_tpu_torch.codecs as tc
 

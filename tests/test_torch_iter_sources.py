@@ -7,9 +7,9 @@ utilities against the JAX package, on the CPU.
 - ``iter/source.py`` is the JAX file's code, and its procedural corpora,
   tiers, PPM cache and errors give what JAX's give, compared with ``==``;
 - ``iter/codecs.py`` is the JAX file's code for the PIL encoders, with the
-  same summaries and bytes; ``build_codec("tpujpeg")`` raises
-  ``UnsupportedFormat`` naming the device JPEG ladder (ROADMAP queue 1
-  item 6);
+  same summaries and bytes; ``build_codec`` and ``TpuJpegIterConfig`` take
+  a ``device`` (tpujpeg's analysis and decode run there), and
+  ``build_codec("tpujpeg")`` gives JAX's summaries and bytes;
 - ``utils/profiling.py``'s ``StageTimer`` and ``EventLog`` are the JAX
   file's code; ``device_trace(None)`` does nothing and
   ``device_trace(dir)`` writes a ``torch.profiler`` Chrome trace there.
@@ -149,8 +149,8 @@ def test_source_errors_equal_jax(tmp_path):
 # -- iter/codecs.py ---------------------------------------------------------
 
 #: What the port's ``iter/codecs.py`` has that JAX's does not, and the reverse.
-CODECS_ONLY_PORT = {"TPUJPEG_WAITS"}
-CODECS_ONLY_JAX = {"TpuJpegIterConfig"}
+CODECS_ONLY_PORT = set()
+CODECS_ONLY_JAX = set()
 
 
 def test_codecs_module_is_the_jax_code_but_tpujpeg():
@@ -159,7 +159,9 @@ def test_codecs_module_is_the_jax_code_but_tpujpeg():
     assert set(port) - set(jax_defs) == CODECS_ONLY_PORT
     assert set(jax_defs) - set(port) == CODECS_ONLY_JAX
     differ = {k for k in port if k in jax_defs and port[k] != jax_defs[k]}
-    assert differ == {"build_codec"}  # its tpujpeg branch raises
+    # Both take a device; the JAX config also checks for its native coder,
+    # which the port builds at first use.
+    assert differ == {"build_codec", "TpuJpegIterConfig"}
 
 
 @pytest.mark.parametrize("fmt,kw", [("jpeg", {}), ("jpg", {"subsampling": "444"}),
@@ -175,10 +177,16 @@ def test_build_codec_equals_jax(fmt, kw):
 
 
 def test_build_codec_errors():
-    with pytest.raises(UnsupportedFormat, match="ROADMAP queue 1 item 6"):
-        tcodecs.build_codec("tpujpeg")
-    with pytest.raises(UnsupportedFormat, match="ROADMAP queue 1 item 6"):
-        tcodecs.build_codec("tpujpeg", xyb=True, trellis=True)
+    """The errors are JAX's; ``tpujpeg``, which raised while the device
+    JPEG ladder was not ported, builds JAX's codecs."""
+    rgb = _rgb(32, 32)
+    for kw in ({}, {"xyb": True, "trellis": True}, {"subsampling": "444", "progressive": False}):
+        got = tcodecs.build_codec("tpujpeg", device="cpu", **kw)
+        want = jcodecs.build_codec("tpujpeg", **kw)
+        assert got.summary == want.summary
+        data = got.encode(rgb, 70)
+        assert data == want.encode(rgb, 70)
+        assert np.abs(got.decode(data).astype(int) - want.decode(data)).max() <= 1
     for args in (("gif",), ("jpeg", "440"), ("avif",)):
         kw = {"preset": "nope"} if args == ("avif",) else {}
         with pytest.raises(UnsupportedFormat) as got:
@@ -189,11 +197,12 @@ def test_build_codec_errors():
 
 
 def test_iter_exports_follow_jax_without_the_device_ladder():
+    """JAX's exports, ``TpuJpegIterConfig`` (the device ladder's) included."""
     jax_names = {n for n, v in vars(jiter).items()
                  if not n.startswith("_") and not inspect.ismodule(v)}
-    assert jax_names - set(titer.__all__) == {"TpuJpegIterConfig"}
+    assert jax_names - set(titer.__all__) == set()
     assert all(hasattr(titer, n) for n in titer.__all__)
-    assert not hasattr(tcodecs, "TpuJpegIterConfig")
+    assert titer.TpuJpegIterConfig is tcodecs.TpuJpegIterConfig
 
 
 # -- utils/profiling.py -----------------------------------------------------

@@ -87,11 +87,14 @@ def test_mixed_size_modules_import_no_jax(module):
 def test_parallel_exports_mesh_and_corpus_runner_only():
     import codec_eval_tpu_torch.parallel as par
 
+    """The mesh, the corpus runner and the ladder runner; ``multihost``
+    waits for ROADMAP queue 1 item 5."""
     assert set(par.__all__) == {
-        "CorpusScores", "Mesh", "StagedPairs", "make_mesh", "score_pairs_sharded", "score_staged",
-        "shard_batch", "sharded_masked_score_fn", "sharded_score_fn", "stage_pairs_sharded",
+        "CorpusLadders", "CorpusScores", "Mesh", "StagedPairs", "make_mesh",
+        "score_pairs_sharded", "score_staged", "shard_batch", "sharded_masked_score_fn",
+        "sharded_score_fn", "stage_pairs_sharded", "sweep_corpus_ladders",
     }
-    assert not hasattr(par, "multihost") and not hasattr(par, "ladder_runner")
+    assert not hasattr(par, "multihost") and hasattr(par, "ladder_runner")
 
 
 def test_port_needs_no_pil_until_a_pil_codec_or_profile_is_used(tmp_path):

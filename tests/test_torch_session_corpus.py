@@ -144,7 +144,7 @@ def test_eval_config_fields_follow_jax():
     port_fields = [f.name for f in dataclasses.fields(EvalConfig)]
     jax_fields = [f.name for f in dataclasses.fields(jce.EvalConfig)]
     assert port_fields[:2] == jax_fields[:2] == ["report_dir", "cache_dir"]
-    assert port_fields == [f for f in jax_fields if f != "device_size_mode"]
+    assert port_fields == jax_fields
     assert EvalConfig(Path("r"), Path("c")).cache_dir == Path("c")
 
 
