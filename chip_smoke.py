@@ -131,6 +131,25 @@ each failing loudly:
    device sweep (one device decode); the ladder's ms at 512 and 2048 px with
    exact and device sizes, the host entropy pass's share, the trellis DP's
    ms, the corpus ladder's ms per image and the peak device memory.
+13. the multi-device layer.  (a) Two processes of this script
+   (``--multihost-worker``) on the one card, in a gloo group on a free
+   127.0.0.1 port, each on cuda:0 through ``global_batch_mesh()``: the
+   dense global step over 16 pairs at 512 px (phase 3's image against its
+   first 16 candidates; per worker K8, K2, K3, K7 and K4 for its 8 pairs),
+   the masked global step on phase 8's 512 x 512 bucket (K9 in both forms,
+   K4) and ``sweep_corpus_ladders(multihost=True, with_sizes="device")``
+   over phase 12's four images (K1-K4, twice phase 3's launches per
+   worker).  The workers' results are identical, the steps equal the
+   single-process step (1e-6 relative) and the ladder phase 12's corpus
+   ladder (sizes exactly, scores 1e-6); each part's ms and peak memory per
+   worker.  A worker that fails or hangs fails the phase.  (b) The spatial
+   step in this process, two row bands on [cuda:0, cuda:0]: phase 3's image
+   at q5, q50 and q90 and phase 5's at q50 and q95, held to the unsharded
+   step (1e-5 relative, Butteraugli 1e-4), with twice its launches (K5 at
+   full resolution at 2048 px: the image's route, not the band's);
+   windowed K8 against its windowed plain version on every band and scale
+   (K1_TOL), the full window equal to no window; spatial against unsharded
+   ms and peak memory at 2048 px, and windowed K8's time beside its bound.
 
 ``--profile`` adds a ``torch.profiler`` breakdown of one ``score_batch``
 per size; K7, K8 and K2 launch by launch on one pair at each size (the
@@ -147,9 +166,12 @@ repository, it exits non-zero and prints none of them.
 from __future__ import annotations
 
 import functools
+import hashlib
 import importlib
 import json
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -995,17 +1017,18 @@ def pair_calls() -> dict:
     }
 
 
-def expected_pair_launches(side: int, pairs: int) -> dict:
+def expected_pair_launches(side: int, pairs: int, butteraugli_calls: int = 2) -> dict:
     """Launches of ``pairs`` passes of ``pair_calls`` at ``side`` px: per
-    Butteraugli call, K2 and K3 once per image and resolution, K7 once per
-    resolution and K5 or K4 as the size route gives; per SSIMULACRA2 call,
-    K8 once per scale; nothing else."""
+    Butteraugli call (two per pair there: 80 and 250 nits; one in the dense
+    step), K2 and K3 once per image and resolution, K7 once per resolution
+    and K5 or K4 as the size route gives; per SSIMULACRA2 call, K8 once per
+    scale; nothing else."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     s2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
     from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
 
     fused = sum(ba._fused_diffmap_ok(n, n) for n in (side, (side + 1) // 2))
-    n_ba = 2 * pairs  # calculate_butteraugli and the 250-nit call
+    n_ba = butteraugli_calls * pairs
     want = dict.fromkeys(WRAPPERS, 0)
     want.update(opsin_xyb=4 * n_ba, bands=4 * n_ba, mask_diff_ac=2 * n_ba,
                 malta_diffmap=fused * n_ba, malta_ac=(2 - fused) * n_ba,
@@ -2836,7 +2859,339 @@ def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, lau
                 "corpus_ladder_ms_per_image_exact", "corpus_ladder_ms_per_image_device",
                 "ladder_512_peak_above_held_gib", "ladder_2048_peak_above_held_gib"):
         print(f"  {key}: {figures[key]!r} | {card}")
-    return {"launches": launches, "errors": errors, "figures": figures}
+    return {"launches": launches, "errors": errors, "figures": figures,
+            "corpus_device": corpus["device"]}
+
+
+# --------------------------------------------- phase 13: the multi-device layer
+
+MH_PROCESSES = 2
+MH_PAIRS = 16  # phase 3's image against its first 16 candidates, 8 per process
+MH_TIMEOUT_S = 300  # a worker that fails, hangs or cannot join fails the phase
+MH_RTOL = 1e-6  # the global steps and ladder against the single-process results
+SPATIAL_RTOL = {"ssimulacra2": 1e-5, "dssim": 1e-5, "psnr": 1e-5, "butteraugli": 1e-4}
+SPATIAL_PICKS = {SIZE: [5, 50, 90], BIG: [50, 95]}
+SPATIAL_BANDS = 2
+
+
+def mh_inputs(ref_u8: np.ndarray, big_u8: np.ndarray, big_batch: np.ndarray) -> dict:
+    """The arrays the workers take: the dense step's pairs, phase 8's
+    512 x 512 bucket (its four 512 px crops at q50 and q90) and phase 12's
+    four corpus-ladder images."""
+    from codec_eval_tpu_torch.iter.source import photo_sources
+
+    pairs, _ = mixed_corpus(big_u8, big_batch)
+    bucket = [(r, d) for r, d in pairs if r.shape[:2] == (SIZE, SIZE)]
+    return {
+        "refs": np.repeat(ref_u8[None], MH_PAIRS, axis=0),
+        "dists": candidates(ref_u8, QUALITIES[:MH_PAIRS]),
+        "masked_refs": np.stack([r for r, _ in bucket]),
+        "masked_dists": np.stack([d for _, d in bucket]),
+        "masked_hw": np.array([r.shape[:2] for r, _ in bucket], np.int32),
+        "photos": np.stack([src.rgb for src in photo_sources(n=4, size=SIZE, seed=CLI_SEED)]),
+    }
+
+
+def mh_dense(mesh, data: dict) -> dict:
+    """The dense step over the whole batch (each process scores its share)."""
+    from codec_eval_tpu_torch import parallel as par
+
+    per_pair, means = par.sharded_score_fn(mesh)(par.shard_batch(mesh, data["refs"]),
+                                                 par.shard_batch(mesh, data["dists"]))
+    return {f"dense_{k}": v.cpu().numpy() for k, v in {**per_pair, **means}.items()}
+
+
+def mh_masked(mesh, data: dict) -> dict:
+    """The masked step over phase 8's 512 x 512 bucket."""
+    from codec_eval_tpu_torch import parallel as par
+
+    per_pair, means = par.sharded_masked_score_fn(mesh)(
+        par.shard_batch(mesh, data["masked_refs"]), par.shard_batch(mesh, data["masked_dists"]),
+        data["masked_hw"])
+    return {f"masked_{k}": v.cpu().numpy() for k, v in {**per_pair, **means}.items()}
+
+
+def mh_ladder(mesh, data: dict) -> dict:
+    """``sweep_corpus_ladders(multihost=True)`` with device sizes over phase
+    12's corpus at rd_calibrate's range."""
+    from codec_eval_tpu_torch import parallel as par
+    from codec_eval_tpu_torch.cli import rd_calibrate
+
+    qualities = [float(q) for q in rd_calibrate.parse_range(CLI_RANGE)]
+    lad = par.sweep_corpus_ladders(list(data["photos"]), qualities, mesh=mesh,
+                                   with_sizes="device", multihost=True)
+    return {**{f"ladder_{k}": v for k, v in lad.scores.items()}, "ladder_sizes": lad.sizes}
+
+
+MH_PARTS = {"dense": mh_dense, "masked": mh_masked, "ladder": mh_ladder}
+
+
+def mh_worker(pid: int, procs: int, port: int, tmp: Path) -> int:
+    """One process of phase 13(a): joins the gloo group, takes
+    ``global_batch_mesh()``'s default device (cuda:0 for both), runs each
+    part once to warm up and once with the launch counters set to 0 just
+    before it and read just after, and writes its results, launches, ms and
+    peak device memory."""
+    import torch.distributed as dist
+    from codec_eval_tpu_torch.kernels.cuda import _lib
+    from codec_eval_tpu_torch.parallel import multihost as mh
+
+    data = dict(np.load(tmp / "inputs.npz"))
+    mh.initialize_distributed(f"127.0.0.1:{port}", procs, pid)
+    mesh = mh.global_batch_mesh()
+    _lib.load()
+    print(f"  worker {pid}: process {mesh.process_index} of {mesh.process_count} on "
+          f"{mesh.devices.tolist()}")
+    out, figures, launches = {}, {}, {}
+    for name, part in MH_PARTS.items():
+        part(mesh, data)  # warm-up
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        out.update(part(mesh, data))
+        torch.cuda.synchronize()
+        figures[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        launches[name] = read_launches()
+        figures[f"{name}_peak_above_held_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    np.savez(tmp / f"out{pid}.npz", **out)
+    digest = hashlib.sha256(b"".join(
+        k.encode() + np.ascontiguousarray(out[k]).tobytes() for k in sorted(out))).hexdigest()
+    (tmp / f"out{pid}.json").write_text(json.dumps(
+        {"launches": launches, "figures": figures, "digest": digest}))
+    print(f"  worker {pid}: digest {digest}")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_workers(tmp: Path) -> list:
+    """Phase 13(a)'s processes: this script in worker mode, twice, on a free
+    127.0.0.1 port, each waited for at most MH_TIMEOUT_S; any that fails or
+    hangs fails the phase, and none outlives it."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    if Path("/sys/class/net/lo").exists():
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the group lives on this host
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--multihost-worker", str(pid),
+         str(MH_PROCESSES), str(port), str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for pid in range(MH_PROCESSES)]
+    deadline = time.monotonic() + MH_TIMEOUT_S
+    outs = []
+    try:
+        for pid, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"worker {pid} did not finish in {MH_TIMEOUT_S} s")
+            print(out, end="")
+            if p.returncode:
+                raise AssertionError(f"worker {pid} exited {p.returncode}:\n{err[-4000:]}")
+            outs.append(json.loads((tmp / f"out{pid}.json").read_text()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def spatial_k8(ref_u8: np.ndarray, dist_u8: np.ndarray, device) -> tuple:
+    """Windowed K8 against its windowed plain version on each band of one
+    pair, at every scale (K1_TOL), and the full window against no window
+    (bit for bit); returns the worst error and the first band's check."""
+    from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
+    from codec_eval_tpu_torch.kernels.cuda import scale_features as sf
+    from codec_eval_tpu_torch.parallel import spatial
+    s2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
+
+    worst, first = 0.0, None
+    side = ref_u8.shape[0]
+    for j, band in enumerate(spatial.row_bands(side, SPATIAL_BANDS)):
+        ref = torch.from_numpy(np.ascontiguousarray(ref_u8[band.start:band.stop])).to(device)
+        dist = torch.from_numpy(np.ascontiguousarray(dist_u8[band.start:band.stop])).to(device)
+        pre = s2.precompute_reference(ref)
+        linear = torch.movedim(srgb_u8_to_linear(dist), -1, 0).contiguous()
+        calls = []
+        for scale in range(s2.NUM_SCALES):
+            if scale:
+                linear = s2.downscale_by_2(linear)
+            xyb2 = s2._to_positive_xyb(linear).contiguous()
+            args = (pre.xyb[scale], pre.mu[scale], pre.sqblur[scale], xyb2)
+            rows = band.window(scale)
+            h, w = xyb2.shape[-2:]
+            worst = max(worst, compare(
+                f"K8 windowed, band {j} ({band.stop - band.start} x {w} rows {band.lo}..{band.hi}) "
+                f"scale {scale} rows {rows[0]}..{rows[1]} of {h}",
+                sf.scale_features(*args, rows=rows), sf.scale_features_plain(*args, rows=rows),
+                **K1_TOL))
+            compare(f"K8 full window = no window, {h}x{w}", sf.scale_features(*args, rows=(0, h)),
+                    sf.scale_features(*args), **EXACT)
+            calls.append((args, rows))
+        if first is None:
+            moved = sum(nbytes(*a) + 4 * 18 for a, _ in calls)
+            ops = sum(K1_OPS * 3 * (r[1] - r[0]) * a[3].shape[-1] for a, r in calls)
+            first = Check(
+                0.0,
+                lambda c=calls: [sf.scale_features(*a, rows=r) for a, r in c],
+                lambda c=calls: [sf.scale_features_plain(*a, rows=r) for a, r in c],
+                moved, ops,
+                f"{band.stop - band.start} x {side} band owning rows {band.lo}..{band.hi}, "
+                "six scales")
+    torch.cuda.synchronize()
+    first.err = worst
+    return worst, first
+
+
+def phase_multi(ref_u8: np.ndarray, big_u8: np.ndarray, big_batch: np.ndarray,
+                launches_512: dict, ladder_device, card: str, device: torch.device) -> dict:
+    """Phase 13: (a) two processes on the one card in a gloo group, each on
+    cuda:0 through ``global_batch_mesh()``: the dense global step, the
+    masked global step and the multi-process corpus ladder, held to the
+    single-process results; (b) the spatial step in this process, two row
+    bands on [cuda:0, cuda:0], held to the unsharded step at 512 and
+    2048 px, with windowed K8 held to its plain version on the bands."""
+    from codec_eval_tpu_torch import parallel as par
+    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+
+    figures: dict = {"card": card}
+    launches: dict = {}
+    errors: dict = {}
+
+    # (a) two processes on cuda:0.
+    t0 = time.perf_counter()
+    data = mh_inputs(ref_u8, big_u8, big_batch)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        np.savez(tmp / "inputs.npz", **data)
+        outs = run_workers(tmp)
+        results = [dict(np.load(tmp / f"out{pid}.npz")) for pid in range(MH_PROCESSES)]
+    figures["multihost_wall_s"] = time.perf_counter() - t0
+    digests = [o["digest"] for o in outs]
+    if len(set(digests)) != 1 or any(
+            not np.array_equal(results[0][k], r[k]) for r in results[1:] for k in results[0]):
+        raise AssertionError(f"the workers' results differ: {digests}")
+    print(f"  both workers' digests: {digests[0]}")
+    per_process = MH_PAIRS // MH_PROCESSES
+    masked_per_process = len(data["masked_refs"]) // MH_PROCESSES
+    images_per_process = len(data["photos"]) // MH_PROCESSES
+    want = {
+        "dense": expected_pair_launches(SIZE, per_process, butteraugli_calls=1),
+        "masked": {**dict.fromkeys(WRAPPERS, 0), "candidate_moments": 6,
+                   "reference_moments": 6, "malta_ac": 2},
+        "ladder": {k: images_per_process * v for k, v in launches_512.items()},
+    }
+    for pid, o in enumerate(outs):
+        for part in MH_PARTS:
+            check_launches(f"of worker {pid}'s {part} part", o["launches"][part], want[part])
+        print(f"  worker {pid} figures: {json.dumps(o['figures'])} | {card}")
+        figures[f"worker{pid}"] = o["figures"]
+    launches.update({f"multihost_{part}": outs[0]["launches"][part] for part in MH_PARTS})
+    print(f"  launches: dense {per_process} pairs, masked {masked_per_process} pairs, "
+          f"ladder {images_per_process} images per worker")
+
+    mesh = par.make_mesh()
+    for part, step in (("dense", mh_dense), ("masked", mh_masked)):
+        worst = 0.0
+        for k, v in step(mesh, data).items():
+            got = results[0][k]
+            if got.shape != v.shape:
+                raise AssertionError(f"{k}: shape {got.shape} != {v.shape}")
+            worst = max(worst, max(rel_diff(float(a), float(b))
+                                   for a, b in zip(got.reshape(-1), v.reshape(-1))))
+        print(f"  the global {part} step vs the single-process step: largest relative "
+              f"difference {worst:.3e}")
+        if worst > MH_RTOL:
+            raise AssertionError(f"the global {part} step strays from the single-process step")
+        errors[f"multihost_{part}_rel"] = worst
+    if not np.array_equal(results[0]["ladder_sizes"], ladder_device.sizes):
+        raise AssertionError("the multi-process ladder's device sizes differ from phase 12's")
+    lad_worst = max(
+        rel_diff(float(a), float(b))
+        for k, v in ladder_device.scores.items()
+        for a, b in zip(results[0][f"ladder_{k}"].reshape(-1), v.reshape(-1)))
+    print(f"  multi-process ladder: sizes equal phase 12's corpus ladder; scores within "
+          f"{lad_worst:.3e} relative")
+    if lad_worst > MH_RTOL:
+        raise AssertionError("the multi-process ladder's scores stray from phase 12's")
+    errors["multihost_ladder_rel"] = lad_worst
+
+    # (b) spatial in one process: two row bands on one card.
+    t0 = time.perf_counter()
+    mesh_s = par.make_mesh(n_batch=1, n_space=SPATIAL_BANDS, devices=[device] * SPATIAL_BANDS)
+    mesh_1 = par.make_mesh(devices=[device])
+    step_s = par.sharded_score_fn(mesh_s, spatial=True)
+    step_1 = par.sharded_score_fn(mesh_1)
+    k8_checks = {}
+    for side, image, picks in ((SIZE, ref_u8, SPATIAL_PICKS[SIZE]),
+                               (BIG, big_u8, SPATIAL_PICKS[BIG])):
+        dists = (candidates(image, picks) if side == SIZE
+                 else big_batch[[BIG_QUALITIES.index(q) for q in picks]])
+        refs = np.repeat(image[None], len(picks), axis=0)
+
+        def spatial_run(r=refs, d=dists):
+            return step_s(par.shard_batch(mesh_s, r, spatial=True),
+                          par.shard_batch(mesh_s, d, spatial=True))
+
+        def whole_run(r=refs, d=dists):
+            return step_1(par.shard_batch(mesh_1, r), par.shard_batch(mesh_1, d))
+
+        reset_launches()
+        got, _ = spatial_run()
+        ls = read_launches()
+        reset_launches()
+        ref_scores, _ = whole_run()
+        l1 = read_launches()
+        launches[f"spatial_{side}"] = ls
+        check_launches(f"of the spatial step at {side} px ({SPATIAL_BANDS} bands of "
+                       f"{len(picks)} pairs)", ls, {k: SPATIAL_BANDS * v for k, v in l1.items()})
+        if side == BIG:  # K5 at full resolution (the image's route, not the band's), K4 at half
+            check_launches(f"of K5 and K4 in the unsharded {BIG} px step",
+                           {k: l1[k] for k in ("malta_diffmap", "malta_ac")},
+                           {"malta_diffmap": len(picks), "malta_ac": len(picks)})
+        for k, v in ref_scores.items():
+            for q, a, b in zip(picks, got[k].tolist(), v.tolist()):
+                err = rel_diff(a, b)
+                errors[f"spatial_{side}_{k}"] = max(errors.get(f"spatial_{side}_{k}", 0.0), err)
+                if err > SPATIAL_RTOL[k]:
+                    raise AssertionError(f"spatial {side} px q{q} {k}: {a!r} vs unsharded {b!r}")
+        print(f"  spatial {side} px vs unsharded, largest relative difference: " + ", ".join(
+            f"{k} {errors[f'spatial_{side}_{k}']:.3e}" for k in ref_scores))
+        err, check = spatial_k8(image, dists[0], device)
+        errors[f"k8_windowed_{side}"] = err
+        k8_checks[side] = check
+        if side == BIG:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            for name, fn in (("spatial", spatial_run), ("unsharded", whole_run),
+                             ("unsharded", whole_run), ("spatial", spatial_run)):
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                figures.setdefault(f"{name}_{BIG}_ms_each", []).append(
+                    (time.perf_counter() - t1) * 1e3)
+                figures[f"{name}_{BIG}_peak_above_held_gib"] = max(
+                    figures.get(f"{name}_{BIG}_peak_above_held_gib", 0.0),
+                    (torch.cuda.max_memory_allocated() - held) / 2**30)
+            for name in ("spatial", "unsharded"):
+                figures[f"{name}_{BIG}_ms"] = statistics.mean(figures[f"{name}_{BIG}_ms_each"])
+            figures["spatial_peak_ratio"] = (figures[f"spatial_{BIG}_peak_above_held_gib"]
+                                            / figures[f"unsharded_{BIG}_peak_above_held_gib"])
+    k8_times = {side: time_check(f"K8 windowed at the {side} px band", c, OWN_TIME.get(
+        "scale_features_pair")) for side, c in k8_checks.items()}
+    figures["spatial_wall_s"] = time.perf_counter() - t0
+    for key in (f"spatial_{BIG}_ms", f"unsharded_{BIG}_ms", f"spatial_{BIG}_peak_above_held_gib",
+                f"unsharded_{BIG}_peak_above_held_gib", "spatial_peak_ratio",
+                "multihost_wall_s", "spatial_wall_s"):
+        print(f"  {key}: {figures[key]!r} | {card}")
+    return {"launches": launches, "errors": errors, "figures": figures, "k8": k8_times}
 
 
 def main() -> int:
@@ -2846,6 +3201,8 @@ def main() -> int:
     from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, _lib
 
     args = sys.argv[1:]
+    if args[:1] == ["--multihost-worker"]:  # one process of phase 13(a)
+        return mh_worker(int(args[1]), int(args[2]), int(args[3]), Path(args[4]))
     profiling = "--profile" in args
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -3035,6 +3392,22 @@ def main() -> int:
     ladder["figures"]["wall_s"] = time.perf_counter() - t0
     print(f"  ladder figures: {json.dumps(ladder['figures'])}")
     done(12, t0)
+
+    t0 = time.perf_counter()
+    print(f"[13] the multi-device layer: {MH_PROCESSES} processes on one card in a gloo group, "
+          f"and {SPATIAL_BANDS} row bands of each pair | {card}")
+    multi = phase_multi(ref_u8, big_u8, big_batch, launches, ladder.pop("corpus_device"), card,
+                        device)
+    for row in rows:
+        for key, counts in multi["launches"].items():
+            row[f"launches_{key}"] = counts[row["name"]]
+    k8 = next(r for r in rows if r["name"] == "scale_features_pair")
+    k8["max_abs_err_windowed"] = max(multi["errors"][f"k8_windowed_{s}"] for s in (SIZE, BIG))
+    k8["max_abs_err"] = max(k8["max_abs_err"], k8["max_abs_err_windowed"])
+    k8["windowed_band_512"], k8["windowed_band_2048"] = multi["k8"][SIZE], multi["k8"][BIG]
+    multi["figures"]["wall_s"] = time.perf_counter() - t0
+    print(f"  multi-device figures: {json.dumps(multi['figures'])}")
+    done(13, t0)
 
     if profiling:
         t0 = time.perf_counter()

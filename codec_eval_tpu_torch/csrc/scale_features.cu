@@ -9,6 +9,12 @@
 // features: the mean of each map and the 4th root of the mean of its 4th
 // power.  K8 is this kernel at N = 1.
 //
+// A row window [row_lo, row_hi) limits the sums, and the pixel count that
+// divides them, to those rows; the blurs still read every row of the plane.
+// Spatial sharding (parallel/spatial.py) scores a row band of an image with
+// a halo above and below and sums only the band's own rows.  The full
+// window [0, h) adds the same values in the same order as no window.
+//
 // What bounds it on an H100: operations.  Per channel-pixel the three
 // 15-tap blurs both ways and the maps take ~210 f32 operations against
 // ~20 bytes of device traffic.  The sources build with -fmad=false and the
@@ -82,8 +88,8 @@ __global__ void __launch_bounds__(ce::kStripThreads, 4)
 scale_features_kernel(const float* __restrict__ x1, const float* __restrict__ mu1,
                       const float* __restrict__ s11, const float* __restrict__ x2,
                       double* __restrict__ partial, int* __restrict__ counter,
-                      float* __restrict__ out, int n, int h, int w, int seg,
-                      ce::Floats<K> taps) {
+                      float* __restrict__ out, int n, int h, int w, int seg, int row_lo,
+                      int row_hi, ce::Floats<K> taps) {
   __shared__ FeaturesSmem sm;
   const int tid = threadIdx.x;
   const int cand = blockIdx.x % n;
@@ -104,6 +110,7 @@ scale_features_kernel(const float* __restrict__ x1, const float* __restrict__ mu
   double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   strip_walk<kFeatures>(sm.strip, ref, cnd, h, w, x0, y0, y_end, seg, taps,
                         [&](const Row (&v)[4], int y) {
+    if (y < row_lo || y >= row_hi) return;  // outside the window: nothing to add
     float mom[3][QUAD];
 #pragma unroll
     for (int m = 0; m < 3; ++m) horizontal_quad(v[m], q, taps.v, mom[m]);
@@ -156,7 +163,7 @@ scale_features_kernel(const float* __restrict__ x1, const float* __restrict__ mu
     for (int k = 0; k < 6; ++k) tot[k] += __ldcg(mine + (size_t)i * 6 + k);
   block_sum6(tot, sm.red);
   if (tid == 0) {
-    const double pixels = (double)h * w;
+    const double pixels = (double)(row_hi - row_lo) * w;
     float* f = out + (size_t)pc * 6;  // (norm 1: ssim, artifact, detail; norm 4: the same)
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
@@ -172,16 +179,19 @@ scale_features_kernel(const float* __restrict__ x1, const float* __restrict__ mu
 // x1, mu1, s11: (3, h, w); x2: (n, 3, h, w); partial: (n, 3, nblk, 6)
 // doubles with nblk = ceil(w / 128) * ceil(h / seg); counter: n * 3 ints,
 // all 0 (the kernel leaves them 0); out: (n, 3, 2, 3); seg: rows per
-// segment; taps: 15 host floats.
+// segment; [row_lo, row_hi): the rows summed, 0 <= row_lo < row_hi <= h;
+// taps: 15 host floats.
 extern "C" int ce_scale_features(const float* x1, const float* mu1, const float* s11,
                                  const float* x2, double* partial, int* counter, float* out,
-                                 int n, int h, int w, int seg, const float* taps,
-                                 void* stream) {
+                                 int n, int h, int w, int seg, int row_lo, int row_hi,
+                                 const float* taps, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  if (row_lo < 0 || row_lo >= row_hi || row_hi > h) return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)n * 3 * ((w + ce::kStrip - 1) / ce::kStrip) *
                            ((h + seg - 1) / seg);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   scale_features_kernel<<<(unsigned)blocks, ce::kStripThreads, 0, (cudaStream_t)stream>>>(
-      x1, mu1, s11, x2, partial, counter, out, n, h, w, seg, ce::load_floats<K>(taps));
+      x1, mu1, s11, x2, partial, counter, out, n, h, w, seg, row_lo, row_hi,
+      ce::load_floats<K>(taps));
   return (int)cudaGetLastError();
 }

@@ -350,25 +350,33 @@ def _blur_batch_ok(h: int, w: int, sigma: float) -> bool:
     return min(h, w) >= _BLUR_PALLAS_MIN_SIDE and ntaps <= _BLUR_PALLAS_MAX_TAPS
 
 
-def _mask_diff_ac_batch(pi1_batch: PsychoImage, b0: torch.Tensor) -> torch.Tensor:
-    """The candidate-side masking term: (B, H, W) diff_ac."""
+def _mask_diff_ac_batch(
+    pi1_batch: PsychoImage, b0: torch.Tensor, route_hw: Optional[tuple] = None
+) -> torch.Tensor:
+    """The candidate-side masking term: (B, H, W) diff_ac; K6 or the dense
+    operator product as the size route of ``route_hw`` (the planes' own
+    shape by default) gives."""
     d1 = _diff_precompute(_combine_channels_for_masking(pi1_batch))
-    if _blur_batch_ok(d1.shape[-2], d1.shape[-1], SIGMA_MASK):
+    if _blur_batch_ok(*(route_hw or d1.shape[-2:]), SIGMA_MASK):
         b1 = blur_batch(d1[:, None].contiguous(), SIGMA_MASK)[:, 0]
     else:
         b1 = _blur(d1, SIGMA_MASK)
     return _MASK_DIFF_AC_MUL * (b0 - b1) * (b0 - b1)
 
 
-def _mask_diff_ac_pair(pi1_batch: PsychoImage, b0: torch.Tensor) -> torch.Tensor:
+def _mask_diff_ac_pair(
+    pi1_batch: PsychoImage, b0: torch.Tensor, route_hw: Optional[tuple] = None
+) -> torch.Tensor:
     """The single pair's masking term, (1, H, W): K7 at every size."""
+    del route_hw
     d1 = _diff_precompute(_combine_channels_for_masking(pi1_batch)).contiguous()
     return mask_diff_ac_batch(d1, b0.contiguous(), _MASK_DIFF_AC_MUL, SIGMA_MASK)
 
 
 #: How a path computes its candidates' masking term: (B-stacked
-#: PsychoImage, the reference's (H, W) blur b0) -> (B, H, W).
-MaskTerm = Callable[[PsychoImage, torch.Tensor], torch.Tensor]
+#: PsychoImage, the reference's (H, W) blur b0, the (h, w) its size routes
+#: see) -> (B, H, W).
+MaskTerm = Callable[[PsychoImage, torch.Tensor, tuple], torch.Tensor]
 
 
 # ----------------------------------------------------------------- diffmap
@@ -529,11 +537,14 @@ def precompute_butteraugli_reference(
 
 def _resolve(
     ref_pi: PsychoImage, pi1: PsychoImage, mask_pre, params: ButteraugliParams,
-    mask_term: MaskTerm,
+    mask_term: MaskTerm, route_hw: tuple,
 ):
-    dac = mask_term(pi1, mask_pre[0])
-    h, w = dac.shape[-2], dac.shape[-1]
-    if _fused_diffmap_ok(h, w):
+    """One resolution's distance map; ``route_hw`` is the (h, w) whose
+    size routes (K5, K6) apply: the planes' own, or the whole image's when
+    the planes are a row band of it (``parallel/spatial.py``), so that a
+    band launches the kernels of the whole image."""
+    dac = mask_term(pi1, mask_pre[0], route_hw)
+    if _fused_diffmap_ok(*route_hw):
         return malta_diffmap_batch(
             *_fused_diffmap_args(ref_pi, pi1, params.hf_asymmetry, params.xmul, mask_pre, dac)
         )
@@ -546,20 +557,25 @@ def _resolve(
 
 
 def butteraugli_distmap_batch(
-    ref: ButteraugliReference, lin_full: torch.Tensor, mask_term: MaskTerm
+    ref: ButteraugliReference, lin_full: torch.Tensor, mask_term: MaskTerm,
+    route_hw: Optional[tuple] = None,
 ) -> torch.Tensor:
     """(N, H, W) distance maps of candidates given as (N, 3, H, W) linear
     RGB against one precomputed reference, with ``mask_term`` computing the
-    candidates' masking term.  Images under 8 px on a side give zero maps."""
+    candidates' masking term.  Images under 8 px on a side give zero maps.
+    ``route_hw``: the (H, W) whose size routes apply, the planes' own by
+    default (a row band passes its whole image's)."""
     h, w = ref.shape
+    full = (h, w) if route_hw is None else tuple(route_hw)
     if h < 8 or w < 8:
         return torch.zeros((lin_full.shape[0], h, w), dtype=torch.float32, device=lin_full.device)
     it = float(np.float32(ref.params.intensity_target))
     pi1f = _psycho_batch(lin_full * it)
-    result = _resolve(ref.pi0_full, pi1f, ref.mask_full, ref.params, mask_term)
+    result = _resolve(ref.pi0_full, pi1f, ref.mask_full, ref.params, mask_term, full)
     if ref.pi0_sub is not None:
         pi1s = _psycho_batch(_subsample2x(lin_full) * it)
-        sub = _resolve(ref.pi0_sub, pi1s, ref.mask_sub, ref.params, mask_term)
+        half = ((full[0] + 1) // 2, (full[1] + 1) // 2)
+        sub = _resolve(ref.pi0_sub, pi1s, ref.mask_sub, ref.params, mask_term, half)
         result = _add_supersampled2x(result, sub)
     return result
 
@@ -610,12 +626,15 @@ def butteraugli_distmap(
     intensity_target: float = 80.0,
     hf_asymmetry: float = 0.8,
     params: Optional[ButteraugliParams] = None,
+    route_hw: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Per-pixel distance map of one (H, W, 3) u8 sRGB pair."""
+    """Per-pixel distance map of one (H, W, 3) u8 sRGB pair; ``route_hw``
+    as in ``butteraugli_distmap_batch``."""
     if params is None:
         params = ButteraugliParams(hf_asymmetry=hf_asymmetry, intensity_target=intensity_target)
     ref = precompute_butteraugli_reference(_planar_linear(ref_u8), params)
-    return butteraugli_distmap_batch(ref, _planar_linear(dist_u8)[None], _mask_diff_ac_pair)[0]
+    return butteraugli_distmap_batch(ref, _planar_linear(dist_u8)[None], _mask_diff_ac_pair,
+                                     route_hw)[0]
 
 
 def butteraugli(

@@ -48,8 +48,8 @@ F = ctypes.c_float
 
 #: C entry points: name -> argtypes.  Each returns ``int`` (cudaError_t).
 SIGNATURES = {
-    # x1, mu1, s11, x2, partial, counter, out, n, h, w, seg, taps, stream
-    "ce_scale_features": (P, P, P, P, P, P, P, I, I, I, I, P, P),
+    # x1, mu1, s11, x2, partial, counter, out, n, h, w, seg, row_lo, row_hi, taps, stream
+    "ce_scale_features": (P, P, P, P, P, P, P, I, I, I, I, I, I, P, P),
     # lin, recip, out, b, h, w, seg, consts, taps, stream
     "ce_opsin_xyb": (P, P, P, I, I, I, I, P, P, P),
     # xyb, lf, recip332, recip156, out, b, h, w, seg, consts, taps332, taps156, stream

@@ -18,6 +18,11 @@ kernel differs from the batched one only in how its grid carries the batch
 the same CUDA kernel at N = 1, under its own wrapper and launch counter.
 The kernel's partials and their order depend on the plane's size only, so
 a pair's features equal those of the same candidate in a batch.
+
+Both wrappers and the plain version take a row window ``rows = (lo, hi)``:
+the features of rows [lo, hi) only, with every row still blurred.  A row
+band of spatial sharding (``parallel/spatial.py``) sums its own rows and
+not its halo.  ``rows=None`` is the whole plane, the same bits as (0, h).
 """
 
 from __future__ import annotations
@@ -59,10 +64,19 @@ def _counter(device: torch.device, planes: int) -> torch.Tensor:
     return buf
 
 
+def _window(rows, h: int) -> tuple:
+    """The row window (lo, hi) of an h-row plane; None is every row."""
+    lo, hi = (0, h) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= lo < hi <= h:
+        raise ValueError(f"row window {rows} is not inside 0..{h}")
+    return lo, hi
+
+
 def scale_features_plain(
-    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor
+    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor, rows=None
 ) -> torch.Tensor:
-    """Features for one scale: xyb2 (..., 3, h, w) -> (..., 3, 2, 3)."""
+    """Features for one scale: xyb2 (..., 3, h, w) -> (..., 3, 2, 3), over
+    the rows ``rows`` = (lo, hi) of the maps (every row when None)."""
     stacked = torch.cat([xyb2, xyb2 * xyb2, xyb1 * xyb2], dim=-3)
     blurred = blur_separable(stacked, SIGMA)
     mu2, s22, s12 = blurred[..., 0:3, :, :], blurred[..., 3:6, :, :], blurred[..., 6:9, :, :]
@@ -82,6 +96,10 @@ def scale_features_plain(
     artifact = torch.clamp(d1, min=0.0)
     detail_lost = torch.clamp(-d1, min=0.0)
 
+    if rows is not None:
+        lo, hi = _window(rows, xyb2.shape[-2])
+        d, artifact, detail_lost = (m[..., lo:hi, :] for m in (d, artifact, detail_lost))
+
     def mean(x):
         return x.mean(dim=(-2, -1))
 
@@ -94,10 +112,11 @@ def scale_features_plain(
     return torch.stack([one, four], dim=-2)
 
 
-def _launch(xyb1, mu1, s11, xyb2: torch.Tensor) -> torch.Tensor:
+def _launch(xyb1, mu1, s11, xyb2: torch.Tensor, rows=None) -> torch.Tensor:
     """The CUDA kernel on (N, 3, H, W) candidates -> (N, 3, 2, 3)."""
     _lib.require_cuda("xyb2", xyb2, (None, 3, None, None))
     n, _, h, w = xyb2.shape
+    lo, hi = _window(rows, h)
     for name, t in (("xyb1", xyb1), ("mu1", mu1), ("s11", s11)):
         _lib.require_cuda(name, t, (3, h, w))
         if t.device != xyb2.device:
@@ -112,19 +131,19 @@ def _launch(xyb1, mu1, s11, xyb2: torch.Tensor) -> torch.Tensor:
         rc = _lib.load().ce_scale_features(
             _lib.ptr(xyb1), _lib.ptr(mu1), _lib.ptr(s11), _lib.ptr(xyb2),
             _lib.ptr(partial), _lib.ptr(_counter(dev, n * 3)), _lib.ptr(out),
-            n, h, w, segment_rows(h), _lib.ptr(taps), _lib.stream(dev),
+            n, h, w, segment_rows(h), lo, hi, _lib.ptr(taps), _lib.stream(dev),
         )
     _lib.check(rc, "ce_scale_features")
     return out
 
 
 def scale_features_batch(
-    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor
+    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor, rows=None
 ) -> torch.Tensor:
     """K1.  Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
     if xyb2.device.type == "cpu":
-        return scale_features_plain(xyb1, mu1, s11, xyb2)
-    out = _launch(xyb1, mu1, s11, xyb2)
+        return scale_features_plain(xyb1, mu1, s11, xyb2, rows)
+    out = _launch(xyb1, mu1, s11, xyb2, rows)
     scale_features_batch.launches += 1
     return out
 
@@ -135,14 +154,14 @@ scale_features_batch.replaces = "codec_eval_tpu/kernels/pallas/scale_features.py
 
 
 def scale_features(
-    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor
+    xyb1: torch.Tensor, mu1: torch.Tensor, s11: torch.Tensor, xyb2: torch.Tensor, rows=None
 ) -> torch.Tensor:
     """K8: one pair's (3, H, W) planes -> (3, 2, 3).  Plain version on CPU
     tensors; the CUDA kernel at N = 1 on CUDA tensors."""
     if xyb2.device.type == "cpu":
-        return scale_features_plain(xyb1, mu1, s11, xyb2)
+        return scale_features_plain(xyb1, mu1, s11, xyb2, rows)
     _lib.require_cuda("xyb2", xyb2, (3, None, None))
-    out = _launch(xyb1, mu1, s11, xyb2[None])[0]
+    out = _launch(xyb1, mu1, s11, xyb2[None], rows)[0]
     scale_features.launches += 1
     return out
 

@@ -85,18 +85,23 @@ def _lab_channel_pyramids(lab: torch.Tensor) -> list:
     return stacks
 
 
-def _ssim_means(ch1, mu1, s11, ch2) -> torch.Tensor:
-    """Mean SSIM per plane of a (..., C, H, W) stack, reference moments given."""
+def _ssim_map(ch1, mu1, s11, ch2) -> torch.Tensor:
+    """The SSIM map of each plane of a (..., C, H, W) stack, reference
+    moments given."""
     n = ch1.shape[-3]
     blurred = _blur_window(torch.cat([ch2, ch2 * ch2, ch1 * ch2], dim=-3))
     mu2 = blurred[..., :n, :, :]
     s22 = blurred[..., n : 2 * n, :, :]
     s12 = blurred[..., 2 * n :, :, :]
     mu11, mu22, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-    ssim_map = ((2.0 * mu12 + C1) * (2.0 * (s12 - mu12) + C2)) / (
+    return ((2.0 * mu12 + C1) * (2.0 * (s12 - mu12) + C2)) / (
         (mu11 + mu22 + C1) * ((s11 - mu11) + (s22 - mu22) + C2)
     )
-    return ssim_map.mean(dim=(-2, -1))
+
+
+def _ssim_means(ch1, mu1, s11, ch2) -> torch.Tensor:
+    """Mean SSIM per plane of a (..., C, H, W) stack, reference moments given."""
+    return _ssim_map(ch1, mu1, s11, ch2).mean(dim=(-2, -1))
 
 
 @dataclass
@@ -143,6 +148,26 @@ def dssim_against_reference(ref: DssimReference, dist_linear: torch.Tensor) -> t
         lsq, csq = ref.sqblur[s]
         luma_means.append(_ssim_means(l1, lmu, lsq, luma2))
         chroma_means.append(_ssim_means(c1, cmu, csq, chroma2))
+    return _aggregate(luma_means, chroma_means).to(torch.float32)
+
+
+def dssim_window_sums(ref: DssimReference, dist_linear: torch.Tensor, windows) -> list:
+    """Per scale, the SSIM maps' sums over a row window of one candidate
+    (3, H, W) linear RGB: [(luma (1,), chroma (2,)) f64 sums, ...].
+    ``windows[s]`` = ((lo, hi) of the luma rows, (lo, hi) of the chroma
+    rows) at scale s: a row band's own rows (``parallel/spatial.py``)."""
+    lab2 = _linear_rgb_to_lab_planes(dist_linear)
+    out = []
+    for s, (luma2, chroma2) in enumerate(_lab_channel_pyramids(lab2)):
+        (l1, c1), (lmu, cmu), (lsq, csq) = ref.planes[s], ref.mu[s], ref.sqblur[s]
+        (llo, lhi), (clo, chi) = windows[s]
+        out.append((_ssim_map(l1, lmu, lsq, luma2)[..., llo:lhi, :].sum(dim=(-2, -1)),
+                    _ssim_map(c1, cmu, csq, chroma2)[..., clo:chi, :].sum(dim=(-2, -1))))
+    return out
+
+
+def dssim_from_means(luma_means: list, chroma_means: list) -> torch.Tensor:
+    """DSSIM from each scale's mean SSIM, luma (1,) and chroma (2,), as f32."""
     return _aggregate(luma_means, chroma_means).to(torch.float32)
 
 

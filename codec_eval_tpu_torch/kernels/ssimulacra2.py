@@ -74,21 +74,29 @@ def precompute_reference(
     return Ssimulacra2Reference(xybs, mus, sqs)
 
 
-def features_from_linear(ref: Ssimulacra2Reference, linear: torch.Tensor) -> torch.Tensor:
+def features_from_linear(
+    ref: Ssimulacra2Reference, linear: torch.Tensor, windows=None
+) -> torch.Tensor:
     """All 108 features of one candidate given as (3, H, W) linear RGB,
-    channel-major ((3, 6, 2, 3) flattened), each scale through K8."""
+    channel-major ((3, 6, 2, 3) flattened), each scale through K8.
+    ``windows`` gives each scale's row window (lo, hi), whose rows alone
+    the features pool (a row band's own rows); None pools every row."""
     per_scale = []
     for scale in range(NUM_SCALES):
         if scale:
             linear = downscale_by_2(linear)
         xyb2 = _to_positive_xyb(linear).contiguous()
-        per_scale.append(scale_features(ref.xyb[scale], ref.mu[scale], ref.sqblur[scale], xyb2))
+        per_scale.append(scale_features(ref.xyb[scale], ref.mu[scale], ref.sqblur[scale], xyb2,
+                                        None if windows is None else windows[scale]))
     return torch.stack(per_scale, dim=1).reshape(-1)
 
 
-def features_against_reference(ref: Ssimulacra2Reference, dist_u8: torch.Tensor) -> torch.Tensor:
+def features_against_reference(
+    ref: Ssimulacra2Reference, dist_u8: torch.Tensor, windows=None
+) -> torch.Tensor:
     """Like ``features_from_linear`` for one (H, W, 3) u8 sRGB candidate."""
-    return features_from_linear(ref, torch.movedim(srgb_u8_to_linear(dist_u8), -1, 0).contiguous())
+    return features_from_linear(
+        ref, torch.movedim(srgb_u8_to_linear(dist_u8), -1, 0).contiguous(), windows)
 
 
 def score_from_features(features: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""Corpus-scale scoring over a mesh of devices (one H100: a mesh of one)."""
+"""Corpus-scale scoring over a mesh of devices (one H100: a mesh of one),
+row bands of one image over its space axis (``spatial``), and meshes that
+span processes (``multihost``)."""
 
 from .corpus_runner import (
     CorpusScores,
@@ -24,3 +26,7 @@ __all__ = [
     "stage_pairs_sharded",
     "sweep_corpus_ladders",
 ]
+
+from . import multihost
+
+__all__ += ["multihost"]

@@ -10,9 +10,16 @@ mesh's batch axis, and only quantized coefficients, or with
 
 On one H100 the mesh is one device.  JAX pads each chunk to a multiple of
 the batch axis and unrolls it per shard; eager PyTorch scores no padded
-repeat.  With exact sizes a one-worker pool entropy-codes each image's
-ladder while the device scores it and the images after it.  The
-multi-process form (``multihost``) waits for ROADMAP queue 1 item 5.
+repeat on one process.  With exact sizes a one-worker pool entropy-codes
+each image's ladder while the device scores it and the images after it.
+
+``multihost=True`` runs over a global mesh (``multihost.global_batch_mesh``):
+every process passes the same images and scores its contiguous slice of
+each chunk on its own devices (the chunk padded by repeating its last image
+up to a multiple of the process count, as JAX pads to a multiple of the
+batch axis); the scores and packed rate statistics are all-gathered over
+the process group, so that every process returns the whole
+``CorpusLadders``.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .mesh import make_mesh
+from .mesh import all_gather_host, make_mesh
 
 __all__ = ["CorpusLadders", "sweep_corpus_ladders", "LADDER_SCORE_PX"]
 
@@ -72,13 +79,17 @@ def sweep_corpus_ladders(
     """tpujpeg quality ladders of a same-size (H, W, 3) u8 corpus, on the
     devices of ``mesh``'s batch axis (every CUDA device by default; an
     error without one; ``make_mesh(devices=[torch.device("cpu")])`` runs on
-    the host).  Image i runs on device i mod n.
+    the host).  A process's k-th image of a chunk runs on its device k mod n.
 
     Images go in chunks of ``images_per_chunk`` (scaled down by area above
     512 x 512, as in JAX).  with_sizes="device" reduces each ladder to
     packed symbol counts on its device (entropy-exact sizes, 0xFF stuffing
     estimated); True entropy-codes the fetched coefficients on the host
     for exact bytes; False scores only.
+
+    ``multihost=True`` needs a global mesh and its process group, and
+    ``with_sizes`` False or "device": exact sizes would entropy-code on
+    the host once per process.
     """
     from ..engine.scoring import build_precompute, fetch_scores, score_chunk
     from ..engine.tpu_sweep import _qtabs_for, _size_mode
@@ -88,9 +99,10 @@ def sweep_corpus_ladders(
     from ..utils import native as _native
 
     size_mode = _size_mode(with_sizes)
-    if multihost:
-        raise NotImplementedError(
-            "multihost ladders are not ported: ROADMAP queue 1 item 5 (multi-device)"
+    if multihost and size_mode == "exact":
+        raise ValueError(
+            "multihost ladders need with_sizes=False or 'device' "
+            "(host entropy coding would run once per process)"
         )
     if not images:
         raise ValueError("no images")
@@ -100,6 +112,9 @@ def sweep_corpus_ladders(
             raise ValueError("sweep_corpus_ladders requires same-size images")
     if mesh is None:
         mesh = make_mesh(n_space=1)
+    if mesh.process_count > 1 and not multihost:
+        raise ValueError("a global mesh runs ladders with multihost=True")
+    procs, pid = mesh.process_count, mesh.process_index
     devices = list(mesh.devices[:, 0])
     n_q = len(qualities)
     config = MetricConfig(**{m: m in metrics for m in _METRICS})
@@ -108,6 +123,7 @@ def sweep_corpus_ladders(
     qt_zz = [tuple(t[_je.ZIGZAG] for t in _je.quality_to_qtables(q)) for q in qualities]
     if h * w > 512 * 512:
         images_per_chunk = max(1, images_per_chunk * (512 * 512) // (h * w))
+    chunk_n = -(-images_per_chunk // procs) * procs
 
     n = len(images)
     all_scores: Dict[str, List[np.ndarray]] = {}
@@ -119,13 +135,12 @@ def sweep_corpus_ladders(
         return len(_native.jpeg_encode_baseline(w, h, subsampling, cy[qi], ccb[qi], ccr[qi],
                                                 ql, qc))
 
-    def ladder(i: int, size_pool: ThreadPoolExecutor) -> tuple:
-        """Image i's scores (on its device), and its packed statistics with
+    def ladder(i: int, dev: torch.device, size_pool: ThreadPoolExecutor) -> tuple:
+        """Image i's scores (on ``dev``), and its packed statistics with
         device sizes.  With exact sizes its coefficients are fetched and
         handed to the one-worker entropy pool before its scoring is queued,
         so the host coder runs while the device scores this image and the
         next ones."""
-        dev = devices[i % len(devices)]
         img = torch.from_numpy(np.require(images[i], np.uint8, "CW")).to(dev)
         cands, coefs = _je.reconstruct_sweep(
             img, torch.from_numpy(qtabs).to(dev), aq_strength, subsampling,
@@ -142,15 +157,25 @@ def sweep_corpus_ladders(
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}, stats
 
     with ThreadPoolExecutor(max_workers=1) as size_pool:
-        for start in range(0, n, images_per_chunk):
-            rows = [ladder(i, size_pool) for i in range(start, min(start + images_per_chunk, n))]
+        for start in range(0, n, chunk_n):
+            real = min(chunk_n, n - start)
+            # One process scores the whole chunk; over processes each scores
+            # its contiguous slice of the chunk padded to a multiple of them.
+            per = -(-real // procs)
+            mine = [min(start + i, n - 1) for i in range(pid * per, (pid + 1) * per)]
+            rows = [ladder(i, devices[k % len(devices)], size_pool) for k, i in enumerate(mine)]
             chunk = fetch_scores({k: torch.stack([s[k].to(devices[0]) for s, _ in rows])
                                   for k in rows[0][0]})
-            for k, v in chunk.items():
-                all_scores.setdefault(k, []).append(v)
             if size_mode == "device":
-                for ii, (_, st) in enumerate(rows):
-                    sizes[start + ii] = _jr.size_estimates_from_packed(st.cpu().numpy())
+                chunk["_stats"] = torch.stack([st.to(devices[0]) for _, st in rows]).cpu().numpy()
+            if multihost:
+                chunk = all_gather_host(mesh, chunk)
+            for k, v in chunk.items():
+                if k != "_stats":
+                    all_scores.setdefault(k, []).append(v[:real])
+            if size_mode == "device":
+                for ii in range(real):
+                    sizes[start + ii] = _jr.size_estimates_from_packed(chunk["_stats"][ii])
         for i, futures in encodes:
             sizes[i] = [f.result() for f in futures]
 

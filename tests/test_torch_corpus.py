@@ -13,8 +13,9 @@
 - ``stage_pairs_sharded`` then ``score_staged`` equals the one-shot call and
   staged buckets are reusable; padding repeats on a two-device mesh are
   dropped from results and means; the masked metric filter;
-- the mesh: the card by default and an error without one, ``n_space > 1``
-  not ported, shards that split the batch, steps cached per mesh and flags.
+- the mesh: the card by default and an error without one, a space axis
+  (``n_space > 1``, its row bands tested in ``tests/test_torch_spatial.py``),
+  shards that split the batch, steps cached per mesh and flags.
 """
 
 import functools
@@ -156,8 +157,11 @@ def test_mesh_defaults_to_the_card(monkeypatch):
 
 
 def test_mesh_shape_and_spatial_sharding():
-    with pytest.raises(NotImplementedError, match="n_space > 1"):
-        tp.make_mesh(n_space=2, devices=[CPU, CPU])
+    spatial = tp.make_mesh(n_space=2, devices=[CPU, CPU])
+    assert spatial.devices.shape == (1, 2) and list(spatial.devices[0]) == [CPU, CPU]
+    assert tp.make_mesh(n_batch=2, n_space=2, devices=[CPU] * 5).devices.shape == (2, 2)
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        tp.make_mesh(n_batch=2, n_space=2, devices=[CPU] * 3)
     with pytest.raises(ValueError, match="needs 3 devices"):
         tp.make_mesh(n_batch=3, devices=[CPU, CPU])
     with pytest.raises(ValueError, match="unsupported device"):

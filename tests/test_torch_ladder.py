@@ -96,7 +96,7 @@ def test_corpus_ladders_refuse_what_they_cannot_run():
         sweep_corpus_ladders([], QUALITIES, mesh=CPU)
     with pytest.raises(ValueError, match="with_sizes"):
         sweep_corpus_ladders(IMAGES, QUALITIES, mesh=CPU, with_sizes="estimate")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
+    with pytest.raises(ValueError, match="host entropy coding would run once per process"):
         sweep_corpus_ladders(IMAGES, QUALITIES, mesh=CPU, multihost=True)
 
 

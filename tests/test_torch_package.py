@@ -77,7 +77,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("module", ["kernels/masked.py", "kernels/cuda/moments.py",
                                     "parallel/mesh.py", "parallel/corpus_runner.py",
-                                    "parallel/__init__.py"])
+                                    "parallel/__init__.py", "parallel/multihost.py",
+                                    "parallel/spatial.py"])
 def test_mixed_size_modules_import_no_jax(module):
     path = PACKAGE / module
     assert path.is_file()
@@ -87,14 +88,18 @@ def test_mixed_size_modules_import_no_jax(module):
 def test_parallel_exports_mesh_and_corpus_runner_only():
     import codec_eval_tpu_torch.parallel as par
 
-    """The mesh, the corpus runner and the ladder runner; ``multihost``
-    waits for ROADMAP queue 1 item 5."""
+    """The mesh, the corpus runner, the ladder runner and, as the JAX
+    package exports it, the ``multihost`` submodule."""
+    import codec_eval_tpu_torch.parallel.multihost as mh
+
     assert set(par.__all__) == {
         "CorpusLadders", "CorpusScores", "Mesh", "StagedPairs", "make_mesh",
         "score_pairs_sharded", "score_staged", "shard_batch", "sharded_masked_score_fn",
-        "sharded_score_fn", "stage_pairs_sharded", "sweep_corpus_ladders",
+        "sharded_score_fn", "stage_pairs_sharded", "sweep_corpus_ladders", "multihost",
     }
-    assert not hasattr(par, "multihost") and hasattr(par, "ladder_runner")
+    assert par.multihost is mh and hasattr(par, "ladder_runner")
+    assert set(mh.__all__) == {"initialize_distributed", "global_batch_mesh",
+                               "partition_corpus", "host_local_batch_to_global"}
 
 
 def test_port_needs_no_pil_until_a_pil_codec_or_profile_is_used(tmp_path):
