@@ -15,6 +15,7 @@ import numpy as np
 
 from ..errors import DimensionMismatch, QualityBelowThreshold
 from ..metrics import MetricConfig, MetricResult, PerceptionLevel
+from ..utils.profiling import span
 from .scoring import BatchScorer
 
 
@@ -44,18 +45,19 @@ def evaluate_single(
 
     reference: src/eval/helpers.rs:105-172.
     """
-    ref = _as_rgb8(reference)
-    enc = _as_rgb8(encoded)
-    if ref.shape != enc.shape:
-        raise DimensionMismatch(
-            (ref.shape[1], ref.shape[0]), (enc.shape[1], enc.shape[0])
-        )
-    scorer = BatchScorer(config, device=device)
-    if viewing_simulation is not None:
-        from ..viewing import simulate_viewing
+    with span("ce.gate.evaluate_single"):
+        ref = _as_rgb8(reference)
+        enc = _as_rgb8(encoded)
+        if ref.shape != enc.shape:
+            raise DimensionMismatch(
+                (ref.shape[1], ref.shape[0]), (enc.shape[1], enc.shape[0])
+            )
+        scorer = BatchScorer(config, device=device)
+        if viewing_simulation is not None:
+            from ..viewing import simulate_viewing
 
-        ref = simulate_viewing(ref, viewing_simulation, device=scorer.device)
-        enc = simulate_viewing(enc, viewing_simulation, device=scorer.device)
+            ref = simulate_viewing(ref, viewing_simulation, device=scorer.device)
+            enc = simulate_viewing(enc, viewing_simulation, device=scorer.device)
     return scorer.score_pair(ref, enc)
 
 
@@ -75,7 +77,8 @@ def assert_quality(
         dssim=max_dssim is not None,
         ssimulacra2=min_ssimulacra2 is not None,
     )
-    result = evaluate_single(reference, encoded, config, device=device)
+    with span("ce.gate.assert_quality"):
+        result = evaluate_single(reference, encoded, config, device=device)
 
     if min_ssimulacra2 is not None and result.ssimulacra2 is not None:
         if result.ssimulacra2 < min_ssimulacra2:

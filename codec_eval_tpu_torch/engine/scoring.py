@@ -22,6 +22,7 @@ from ..kernels.dssim import dssim_against_reference, precompute_dssim_reference
 from ..kernels.psnr import psnr
 from ..kernels.ssimulacra2 import precompute_reference, ssimulacra2_batch_pre
 from ..metrics import MetricConfig, MetricResult
+from ..utils.profiling import count, span
 
 METRICS = ("dssim", "ssimulacra2", "butteraugli", "psnr")
 
@@ -67,15 +68,20 @@ def score_chunk(
     if config.dssim or config.ssimulacra2 or config.butteraugli:
         lin = srgb_u8_to_linear(batch_u8)
     if config.psnr:
-        out["psnr"] = psnr(ref_cmp, batch_u8)
+        with span("ce.scorer.psnr"):
+            out["psnr"] = psnr(ref_cmp, batch_u8)
     if config.dssim:
-        vals = dssim_against_reference(pre["dssim"], lin)
-        out["dssim"] = torch.where(identical, torch.zeros_like(vals), vals)
+        with span("ce.scorer.dssim"):
+            vals = dssim_against_reference(pre["dssim"], lin)
+            out["dssim"] = torch.where(identical, torch.zeros_like(vals), vals)
     if config.ssimulacra2:
-        out["ssimulacra2"] = ssimulacra2_batch_pre(pre["s2"], ref_cmp, batch_u8, lin_planar=lin)
+        with span("ce.scorer.ssimulacra2"):
+            out["ssimulacra2"] = ssimulacra2_batch_pre(pre["s2"], ref_cmp, batch_u8,
+                                                       lin_planar=lin)
     if config.butteraugli:
-        vals = butteraugli_batch(pre["ba"], lin)
-        out["butteraugli"] = torch.where(identical, torch.zeros_like(vals), vals)
+        with span("ce.scorer.butteraugli"):
+            vals = butteraugli_batch(pre["ba"], lin)
+            out["butteraugli"] = torch.where(identical, torch.zeros_like(vals), vals)
     return out
 
 
@@ -85,8 +91,23 @@ def fetch_scores(scores: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     if not scores:
         return {}
     keys = sorted(scores)
-    stacked = torch.stack([scores[k].to(torch.float32) for k in keys]).cpu().numpy()
+    with span("ce.scorer.fetch"):
+        stacked = torch.stack([scores[k].to(torch.float32) for k in keys]).cpu().numpy()
     return {k: stacked[i].astype(np.float64) for i, k in enumerate(keys)}
+
+
+def _count_copy(out: np.ndarray, src: np.ndarray) -> np.ndarray:
+    """``out``, counting its bytes as staging when it is a fresh copy of ``src``."""
+    if not np.may_share_memory(out, src):
+        count("staging.host_bytes", out.nbytes)
+    return out
+
+
+def _stage_candidates(candidates_u8: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(N, H, W, 3) u8 host candidates -> planar (N, 3, H, W) u8 on ``device``."""
+    with span("ce.scorer.stage"):
+        planar = np.ascontiguousarray(np.moveaxis(candidates_u8, -1, 1))
+        return torch.from_numpy(_count_copy(planar, candidates_u8)).to(device)
 
 
 def score_ladder(
@@ -101,11 +122,11 @@ def score_ladder(
     reference, which they score 0 to within their rounding (< 1e-6); the
     batch scorer's stages, which zero it, serve here as they are."""
     dev = resolve_device(device)
-    pre = build_precompute(torch.from_numpy(np.require(reference_u8, requirements="CW")).to(dev),
-                          config)
-    planar = np.ascontiguousarray(np.moveaxis(candidates_u8, -1, 1))
-    batch = torch.from_numpy(planar).to(dev)
-    return fetch_scores(score_chunk(pre, batch, config))
+    with span("ce.scorer.precompute"):
+        count("scorer.precompute_miss")
+        contig = _count_copy(np.require(reference_u8, requirements="CW"), reference_u8)
+        pre = build_precompute(torch.from_numpy(contig).to(dev), config)
+    return fetch_scores(score_chunk(pre, _stage_candidates(candidates_u8, dev), config))
 
 
 class BatchScorer:
@@ -125,18 +146,21 @@ class BatchScorer:
         return c.dssim or c.ssimulacra2 or c.butteraugli or c.psnr
 
     def precompute(self, reference_u8: np.ndarray) -> Dict[str, object]:
-        contig = np.require(reference_u8, requirements="CW")
-        c = self.config
-        key = (
-            reference_u8.shape,
-            (c.dssim, c.ssimulacra2, c.butteraugli, c.psnr, c.xyb_roundtrip),
-            zlib.crc32(contig.view(np.uint8).reshape(-1).data),
-        )
-        if self._ref_key != key:
-            ref = torch.from_numpy(contig).to(self.device)
-            self._ref_pre = build_precompute(ref, c)
-            self._ref_key = key
-        return self._ref_pre
+        with span("ce.scorer.precompute"):
+            contig = _count_copy(np.require(reference_u8, requirements="CW"), reference_u8)
+            c = self.config
+            key = (
+                reference_u8.shape,
+                (c.dssim, c.ssimulacra2, c.butteraugli, c.psnr, c.xyb_roundtrip),
+                zlib.crc32(contig.view(np.uint8).reshape(-1).data),
+            )
+            if self._ref_key == key:
+                count("scorer.precompute_hit")
+            else:
+                count("scorer.precompute_miss")
+                self._ref_pre = build_precompute(torch.from_numpy(contig).to(self.device), c)
+                self._ref_key = key
+            return self._ref_pre
 
     def score_batch(
         self, reference_u8: np.ndarray, candidates_u8: np.ndarray
@@ -149,10 +173,10 @@ class BatchScorer:
             raise ValueError(
                 f"candidates {candidates_u8.shape} do not match reference {reference_u8.shape}"
             )
-        pre = self.precompute(reference_u8)
-        planar = np.ascontiguousarray(np.moveaxis(candidates_u8, -1, 1))
-        batch = torch.from_numpy(planar).to(self.device)
-        raw = fetch_scores(score_chunk(pre, batch, self.config))
+        with span("ce.scorer.score_batch"):
+            pre = self.precompute(reference_u8)
+            batch = _stage_candidates(candidates_u8, self.device)
+            raw = fetch_scores(score_chunk(pre, batch, self.config))
         return [
             MetricResult(**{k: float(raw[k][i]) if k in raw else None for k in METRICS})
             for i in range(n)

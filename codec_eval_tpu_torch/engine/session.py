@@ -29,6 +29,7 @@ import numpy as np
 
 from ..errors import CodecError, CodecEvalError, DimensionMismatch, InvalidQuality
 from ..metrics import MetricConfig, MetricResult
+from ..utils.profiling import count, span
 from ..viewing import ViewingCondition
 from .image import ImageData
 from .report import CodecResult, CorpusReport, ImageReport, write_csv_summary, write_json
@@ -257,47 +258,48 @@ class EvalSession:
     def _stage_image(self, name: str, image: ImageData, on_error: str = "raise") -> List[dict]:
         """Run every (codec, quality) cell.  With ``on_error="skip"`` a
         failing cell is kept as an unscored row and the others still run."""
-        staged: List[dict] = []
-        for codec in self._codecs:
-            if self._device_sweep_ok(codec):
-                try:
-                    staged.extend(self._stage_codec_device(name, image, codec))
-                    self.device_sweeps_run += 1
-                    continue
-                except Exception as e:  # noqa: BLE001 - fall back, loudly
-                    self.device_sweep_fallbacks += 1
-                    warnings.warn(
-                        f"device sweep failed for {codec.id} ({type(e).__name__}: {e}); "
-                        "using the host per-cell path", RuntimeWarning, stacklevel=2)
-            if self._jpeg_device_ok(codec):
-                try:
-                    staged.extend(self._stage_codec_jpeg_device(name, image, codec))
-                    self.jpeg_device_decodes_run += 1
-                    continue
-                except Exception as e:  # noqa: BLE001 - fall back, loudly
-                    self.jpeg_device_decode_fallbacks += 1
-                    warnings.warn(
-                        f"device JPEG decode failed for {codec.id} ({type(e).__name__}: {e}); "
-                        "using the host per-cell path", RuntimeWarning, stacklevel=2)
-            for quality in self.config.quality_levels:
-                try:
-                    staged.append(self._stage_cell(name, image, codec, quality))
-                except CodecEvalError as e:
-                    if on_error != "skip":
-                        raise
-                    staged.append(
-                        {
-                            "codec": codec,
-                            "quality": quality,
-                            "params": {},
-                            "file_size": 0,
-                            "encode_ms": 0,
-                            "decode_ms": None,
-                            "decoded": None,
-                            "cached_path": None,
-                            "error": str(e),
-                        }
-                    )
+        with span("ce.session.codecs"):
+            staged: List[dict] = []
+            for codec in self._codecs:
+                if self._device_sweep_ok(codec):
+                    try:
+                        staged.extend(self._stage_codec_device(name, image, codec))
+                        self.device_sweeps_run += 1
+                        continue
+                    except Exception as e:  # noqa: BLE001 - fall back, loudly
+                        self.device_sweep_fallbacks += 1
+                        warnings.warn(
+                            f"device sweep failed for {codec.id} ({type(e).__name__}: {e}); "
+                            "using the host per-cell path", RuntimeWarning, stacklevel=2)
+                if self._jpeg_device_ok(codec):
+                    try:
+                        staged.extend(self._stage_codec_jpeg_device(name, image, codec))
+                        self.jpeg_device_decodes_run += 1
+                        continue
+                    except Exception as e:  # noqa: BLE001 - fall back, loudly
+                        self.jpeg_device_decode_fallbacks += 1
+                        warnings.warn(
+                            f"device JPEG decode failed for {codec.id} ({type(e).__name__}: {e}); "
+                            "using the host per-cell path", RuntimeWarning, stacklevel=2)
+                for quality in self.config.quality_levels:
+                    try:
+                        staged.append(self._stage_cell(name, image, codec, quality))
+                    except CodecEvalError as e:
+                        if on_error != "skip":
+                            raise
+                        staged.append(
+                            {
+                                "codec": codec,
+                                "quality": quality,
+                                "params": {},
+                                "file_size": 0,
+                                "encode_ms": 0,
+                                "decode_ms": None,
+                                "decoded": None,
+                                "cached_path": None,
+                                "error": str(e),
+                            }
+                        )
         return staged
 
     def _wanted(self) -> tuple:
@@ -392,35 +394,40 @@ class EvalSession:
         report = ImageReport(name=name, width=width, height=height)
         decodable = [e for e in staged if e["decoded"] is not None and "metrics" not in e]
         if decodable and self._scorer.enabled():
-            batch = np.stack([e["decoded"] for e in decodable])
-            results = self._scorer.score_batch(image.to_rgb8(), batch)
+            with span("ce.session.batch"):
+                batch = np.stack([e["decoded"] for e in decodable])
+                count("staging.host_bytes", batch.nbytes)
+                reference = image.to_rgb8()
+            results = self._scorer.score_batch(reference, batch)
             for e, m in zip(decodable, results):
                 e["metrics"] = m
-        for e in staged:
-            metrics = e.get("metrics", MetricResult())
-            report.results.append(
-                CodecResult(
-                    codec_id=e["codec"].id,
-                    codec_version=e["codec"].version,
-                    quality=e["quality"],
-                    file_size=e["file_size"],
-                    bits_per_pixel=e["file_size"] * 8 / (width * height),
-                    encode_time_ms=e["encode_ms"],
-                    decode_time_ms=e["decode_ms"],
-                    metrics=metrics,
-                    perception=(metrics.perception_level()
-                                if e["decoded"] is not None or e.get("scored") else None),
-                    cached_path=e["cached_path"],
-                    codec_params=e["params"],
+        with span("ce.session.report"):
+            for e in staged:
+                metrics = e.get("metrics", MetricResult())
+                report.results.append(
+                    CodecResult(
+                        codec_id=e["codec"].id,
+                        codec_version=e["codec"].version,
+                        quality=e["quality"],
+                        file_size=e["file_size"],
+                        bits_per_pixel=e["file_size"] * 8 / (width * height),
+                        encode_time_ms=e["encode_ms"],
+                        decode_time_ms=e["decode_ms"],
+                        metrics=metrics,
+                        perception=(metrics.perception_level()
+                                    if e["decoded"] is not None or e.get("scored") else None),
+                        cached_path=e["cached_path"],
+                        codec_params=e["params"],
+                    )
                 )
-            )
         return report
 
     def evaluate_image(self, name: str, image: ImageData, on_error: str = "raise") -> ImageReport:
         """Evaluate one image across all codecs x quality levels: host codecs
         run serially (timed each), then every decoded candidate is scored in
         one batch."""
-        return self._score_and_report(name, image, self._stage_image(name, image, on_error))
+        with span("ce.session.image"):
+            return self._score_and_report(name, image, self._stage_image(name, image, on_error))
 
     def evaluate_corpus(
         self, images, name: str = "corpus", on_error: str = "skip", progress=None
@@ -456,7 +463,8 @@ class EvalSession:
                     future = pool.submit(stage, i + 1)
                 if staged is None:
                     continue
-                corpus_report.images.append(self._score_and_report(img_name, image, staged))
+                with span("ce.session.image"):
+                    corpus_report.images.append(self._score_and_report(img_name, image, staged))
                 if progress:
                     progress(f"[{i + 1}/{len(items)}] {img_name} OK")
         return corpus_report

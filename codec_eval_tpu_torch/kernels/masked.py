@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import butteraugli as ba
 from . import dssim as ds
 from .blur import downscale_by_2
@@ -386,12 +387,16 @@ def _bucketed_chunks(pairs, granularity: int, batch: int):
 
 def _fused_masked_all(refs_pad: torch.Tensor, dists_pad: torch.Tensor, valid_hw) -> dict:
     """All four masked metrics of a batch of padded pairs: {metric: (N,)}."""
-    return {
-        "ssimulacra2": ssimulacra2_masked_batch(refs_pad, dists_pad, valid_hw),
-        "dssim": dssim_masked_batch(refs_pad, dists_pad, valid_hw),
-        "butteraugli": butteraugli_masked_batch(refs_pad, dists_pad, valid_hw),
-        "psnr": psnr_masked_batch(refs_pad, dists_pad, valid_hw),
-    }
+    out = {}
+    with span("ce.masked.ssimulacra2"):
+        out["ssimulacra2"] = ssimulacra2_masked_batch(refs_pad, dists_pad, valid_hw)
+    with span("ce.masked.dssim"):
+        out["dssim"] = dssim_masked_batch(refs_pad, dists_pad, valid_hw)
+    with span("ce.masked.butteraugli"):
+        out["butteraugli"] = butteraugli_masked_batch(refs_pad, dists_pad, valid_hw)
+    with span("ce.masked.psnr"):
+        out["psnr"] = psnr_masked_batch(refs_pad, dists_pad, valid_hw)
+    return out
 
 
 def _score_buckets(pairs, granularity: int, batch: int, device, fn) -> dict:

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
 from .mesh import make_mesh, shard_batch, sharded_masked_score_fn, sharded_score_fn
 
 
@@ -80,27 +81,28 @@ def stage_pairs_sharded(
     for i, (ref, dist) in enumerate(pairs):
         if ref.shape != dist.shape:
             raise ValueError(f"pair {i}: reference {ref.shape} and candidate {dist.shape} differ")
-    if masked:
-        from ..kernels.masked import _bucketed_chunks
+    with span("ce.runner.stage"):
+        if masked:
+            from ..kernels.masked import _bucketed_chunks
 
-        step = sharded_masked_score_fn(mesh)
-        chunks = _bucketed_chunks(pairs, granularity, batch * n_batch)
-    else:
-        step = sharded_score_fn(mesh, **flags)
-        chunks = _exact_buckets(pairs)
+            step = sharded_masked_score_fn(mesh)
+            chunks = _bucketed_chunks(pairs, granularity, batch * n_batch)
+        else:
+            step = sharded_score_fn(mesh, **flags)
+            chunks = _exact_buckets(pairs)
 
-    staged = []
-    for indices, refs, dists, hw in chunks:
-        n = len(refs)
-        padded = -(-n // n_batch) * n_batch
-        if padded != n:
-            refs = np.concatenate([refs, np.repeat(refs[-1:], padded - n, 0)])
-            dists = np.concatenate([dists, np.repeat(dists[-1:], padded - n, 0)])
-            if masked:
-                hw = np.concatenate([hw, np.repeat(hw[-1:], padded - n, 0)])
-        staged.append((indices, shard_batch(mesh, refs), shard_batch(mesh, dists), hw))
-    return StagedPairs(n_pairs=len(pairs), masked=masked, wanted=wanted, step=step,
-                       buckets=staged)
+        staged = []
+        for indices, refs, dists, hw in chunks:
+            n = len(refs)
+            padded = -(-n // n_batch) * n_batch
+            if padded != n:
+                refs = np.concatenate([refs, np.repeat(refs[-1:], padded - n, 0)])
+                dists = np.concatenate([dists, np.repeat(dists[-1:], padded - n, 0)])
+                if masked:
+                    hw = np.concatenate([hw, np.repeat(hw[-1:], padded - n, 0)])
+            staged.append((indices, shard_batch(mesh, refs), shard_batch(mesh, dists), hw))
+        return StagedPairs(n_pairs=len(pairs), masked=masked, wanted=wanted, step=step,
+                           buckets=staged)
 
 
 def _exact_buckets(pairs):
@@ -117,13 +119,14 @@ def score_staged(staged: StagedPairs) -> CorpusScores:
     """Score a staged corpus slice; the means are taken on the host."""
     per_pair: List[Optional[Dict[str, float]]] = [None] * staged.n_pairs
     for indices, refs, dists, hw in staged.buckets:
-        if staged.masked:
-            scores, _ = staged.step(refs, dists, hw)
-        else:
-            scores, _ = staged.step(refs, dists)
-        scores = {
-            k: v.cpu().numpy().astype(np.float64) for k, v in scores.items() if k in staged.wanted
-        }
+        with span("ce.runner.bucket"):
+            if staged.masked:
+                scores, _ = staged.step(refs, dists, hw)
+            else:
+                scores, _ = staged.step(refs, dists)
+        with span("ce.runner.fetch"):
+            scores = {k: v.cpu().numpy().astype(np.float64)
+                      for k, v in scores.items() if k in staged.wanted}
         for j, i in enumerate(indices):
             per_pair[i] = {k: float(scores[k][j]) for k in scores}
 
@@ -146,12 +149,13 @@ def score_pairs_sharded(
     batch: int = 8,
 ) -> CorpusScores:
     """Stage and score in one call (see ``stage_pairs_sharded``)."""
-    return score_staged(
-        stage_pairs_sharded(
-            pairs, mesh=mesh, dssim=dssim, ssimulacra2=ssimulacra2, butteraugli=butteraugli,
-            psnr=psnr, masked=masked, granularity=granularity, batch=batch,
+    with span("ce.runner.score_pairs"):
+        return score_staged(
+            stage_pairs_sharded(
+                pairs, mesh=mesh, dssim=dssim, ssimulacra2=ssimulacra2, butteraugli=butteraugli,
+                psnr=psnr, masked=masked, granularity=granularity, batch=batch,
+            )
         )
-    )
 
 
 __all__ = [

@@ -1,59 +1,68 @@
-"""Profiling and tracing utilities.
+"""Tracing: named spans and counters at the port's layer boundaries, and a
+``torch.profiler`` trace of host and CUDA activity around a block.
 
-Port of ``codec_eval_tpu/utils/profiling.py``.  The reference's
-observability is ad-hoc Instant timers around encode/decode (SURVEY.md §5);
-this module keeps those per-stage timers (they feed the
-``encode_ms``/``decode_ms`` report fields) and a lightweight structured
-event log, both the JAX module's code, and captures a ``torch.profiler``
-trace (host and CUDA activity) around a block of device work where the JAX
-module captures a ``jax.profiler`` trace.
+Tracing has no switch of its own: it is on exactly while a
+``torch.profiler`` session records on the calling thread (``device_trace``
+below, or any profiler a caller starts).  Then ``span(name)`` opens a host
+range on the profiler's clock, the clock of the CUDA activity it records,
+and ``count(name, n)`` adds to an in-memory total.  With no profiler
+recording, ``span`` returns one shared no-op context and ``count`` does
+nothing, so the calls cost well under a microsecond each and can stay on
+the hot path.
+
+Span names are fixed strings ``ce.<layer>.<step>``; one call's spans nest
+under its top span (``ce.session.image``, ``ce.gate.assert_quality``,
+``ce.runner.score_pairs``).  The profiler records the thread that started
+it: work on other threads, such as ``EvalSession.evaluate_corpus``'s
+staging worker, is neither spanned nor counted.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
-import sys
+import threading
 import time
-from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
 
-@dataclass
-class StageTimer:
-    """Accumulates wall-clock per named stage."""
+_recording = torch._C._autograd._profiler_enabled
+# A host range with no shadow on the device timeline: unlike
+# ``record_function``, it is not a user annotation, for which the profiler
+# adds a ``gpu_user_annotation`` range that covers the kernels it launched.
+_HostRange = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
 
-    totals_ms: Dict[str, float] = field(default_factory=dict)
-    counts: Dict[str, int] = field(default_factory=dict)
+_counters: Dict[str, int] = {}
+_counters_lock = threading.Lock()
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = (time.perf_counter() - t0) * 1000
-            self.totals_ms[name] = self.totals_ms.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
 
-    def summary(self) -> Dict[str, dict]:
-        return {
-            name: {
-                "total_ms": round(self.totals_ms[name], 2),
-                "count": self.counts[name],
-                "mean_ms": round(self.totals_ms[name] / self.counts[name], 3),
-            }
-            for name in self.totals_ms
-        }
+def span(name: str):
+    """A context manager: a host range ``name`` while a profiler records,
+    otherwise a shared no-op."""
+    if _recording():
+        return _HostRange(name)
+    return _OFF
 
-    def print_summary(self, out=sys.stderr) -> None:
-        for name, s in sorted(self.summary().items()):
-            print(
-                f"  {name:<24} {s['total_ms']:>10.1f} ms  "
-                f"({s['count']} x {s['mean_ms']:.2f} ms)",
-                file=out,
-            )
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while a profiler records (``n = 0``
+    still makes the counter exist)."""
+    if _recording():
+        with _counters_lock:
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters' totals."""
+    with _counters_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    with _counters_lock:
+        _counters.clear()
 
 
 @contextlib.contextmanager
@@ -67,7 +76,6 @@ def device_trace(log_dir: Optional[str] = None):
     if log_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -82,27 +90,3 @@ def device_trace(log_dir: Optional[str] = None):
     finally:
         prof.stop()
         prof.export_chrome_trace(str(out / f"trace-{time.time_ns()}.json"))
-
-
-class EventLog:
-    """Append-only structured JSONL event log (the durable-observability
-    layer the reference's bare eprintln lacks)."""
-
-    def __init__(self, path: Optional[Path] = None, echo: bool = False):
-        self.path = Path(path) if path else None
-        self.echo = echo
-        self._fh = open(self.path, "a") if self.path else None
-
-    def event(self, kind: str, **fields) -> None:
-        record = {"t": time.time(), "kind": kind, **fields}
-        if self._fh:
-            self._fh.write(json.dumps(record) + "\n")
-            self._fh.flush()
-        if self.echo:
-            print(f"[{kind}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-                  file=sys.stderr)
-
-    def close(self) -> None:
-        if self._fh:
-            self._fh.close()
-            self._fh = None

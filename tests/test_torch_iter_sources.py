@@ -10,8 +10,7 @@ utilities against the JAX package, on the CPU.
   same summaries and bytes; ``build_codec`` and ``TpuJpegIterConfig`` take
   a ``device`` (tpujpeg's analysis and decode run there), and
   ``build_codec("tpujpeg")`` gives JAX's summaries and bytes;
-- ``utils/profiling.py``'s ``StageTimer`` and ``EventLog`` are the JAX
-  file's code; ``device_trace(None)`` does nothing and
+- ``utils/profiling.py``'s ``device_trace(None)`` does nothing and
   ``device_trace(dir)`` writes a ``torch.profiler`` Chrome trace there.
 """
 
@@ -206,29 +205,6 @@ def test_iter_exports_follow_jax_without_the_device_ladder():
 
 
 # -- utils/profiling.py -----------------------------------------------------
-
-
-@pytest.mark.parametrize("name", ["StageTimer", "EventLog"])
-def test_profiling_host_classes_are_the_jax_code(name):
-    assert top_level_code("codec_eval_tpu_torch.utils.profiling")[name] == top_level_code(
-        "codec_eval_tpu.utils.profiling")[name]
-
-
-def test_stage_timer_and_event_log(tmp_path, capsys):
-    from codec_eval_tpu_torch.utils.profiling import EventLog, StageTimer
-
-    timer = StageTimer()
-    for _ in range(2):
-        with timer.stage("encode"):
-            pass
-    s = timer.summary()
-    assert s["encode"]["count"] == 2 and s["encode"]["total_ms"] >= 0.0
-    log = EventLog(tmp_path / "events.jsonl", echo=True)
-    log.event("scored", image="a", n=3)
-    log.close()
-    record = json.loads((tmp_path / "events.jsonl").read_text())
-    assert record["kind"] == "scored" and record["n"] == 3
-    assert "[scored] image=a n=3" in capsys.readouterr().err
 
 
 def test_device_trace_none_is_a_no_op(tmp_path):
