@@ -3,15 +3,18 @@
 Port of ``codec_eval_tpu/engine/scoring.py``.  The reference side (XYB
 roundtrip, SSIMULACRA2 and DSSIM pyramids, Butteraugli psycho images and
 masks) runs once per image and is cached; each batch of candidates is then
-staged to planar (N, 3, H, W) linear RGB once, scored by all four metrics
-on the scorer's device, and fetched to the host in one copy.  PyTorch runs
-eagerly, so candidates are scored as they come, without padding to buckets.
+copied, as it is, into one reused host buffer (page-locked for a CUDA
+device), sent to the device in one copy, made planar (N, 3, H, W) there,
+scored by all four metrics on the scorer's device, and fetched to the host
+in one copy.  PyTorch runs eagerly, so candidates are scored as they come,
+without padding to buckets.
 """
 
 from __future__ import annotations
 
+import math
 import zlib
-from typing import Dict
+from typing import Dict, Sequence, Union
 
 import numpy as np
 import torch
@@ -103,43 +106,98 @@ def _count_copy(out: np.ndarray, src: np.ndarray) -> np.ndarray:
     return out
 
 
-def _stage_candidates(candidates_u8: np.ndarray, device: torch.device) -> torch.Tensor:
-    """(N, H, W, 3) u8 host candidates -> planar (N, 3, H, W) u8 on ``device``."""
-    with span("ce.scorer.stage"):
-        planar = np.ascontiguousarray(np.moveaxis(candidates_u8, -1, 1))
-        return torch.from_numpy(_count_copy(planar, candidates_u8)).to(device)
+Candidates = Union[np.ndarray, Sequence[np.ndarray]]
+
+
+def _check_candidates(candidates_u8: Candidates, reference_u8: np.ndarray) -> None:
+    """Each candidate of an (N, H, W, 3) array or of a sequence of (H, W, 3)
+    arrays has the (H, W, 3) shape of the reference."""
+    n = len(candidates_u8)
+    shapes = ([candidates_u8.shape[1:]] if isinstance(candidates_u8, np.ndarray)
+              else [np.shape(c) for c in candidates_u8])
+    for shape in shapes:
+        if shape != reference_u8.shape or reference_u8.shape[-1] != 3:
+            raise ValueError(
+                f"candidates {(n, *shape)} do not match reference {reference_u8.shape}"
+            )
+
+
+class _Staging:
+    """One host buffer that the candidates of a batch go through to reach
+    the device: each (H, W, 3) candidate is copied into it as it is (one
+    contiguous copy each), the whole (N, H, W, 3) prefix goes to the device
+    in one copy, and the device makes it planar.  For a CUDA device the
+    buffer is page-locked and the copy asynchronous; the next batch waits
+    for that copy to end before it writes.  The buffer grows to the largest
+    batch staged and is reused by every smaller one.  One caller at a time."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._buf = torch.empty(0, dtype=torch.uint8)
+        self._copied = None  # a CUDA event after the last copy out of the buffer
+
+    def stage(self, candidates_u8: Candidates, frame: tuple) -> torch.Tensor:
+        """(N, H, W, 3) u8 or N (H, W, 3) u8 host candidates of shape
+        ``frame`` (H, W, 3) -> planar (N, 3, H, W) u8 on the device."""
+        with span("ce.scorer.stage"):
+            shape = (len(candidates_u8), *frame)
+            nbytes = math.prod(shape)
+            if self._copied is not None:
+                self._copied.synchronize()
+            if self._buf.numel() < nbytes:
+                self._buf = torch.empty(nbytes, dtype=torch.uint8,
+                                        pin_memory=self.device.type == "cuda")
+                count("staging.buffer_alloc")
+                count("staging.host_bytes", nbytes)
+            else:
+                count("staging.buffer_reuse")
+                count("staging.host_bytes", 0)
+            host = self._buf[:nbytes].view(shape)
+            view = host.numpy()
+            for i, candidate in enumerate(candidates_u8):
+                np.copyto(view[i], candidate)
+            nhwc = host.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                self._copied = torch.cuda.Event()
+                self._copied.record(torch.cuda.current_stream(self.device))
+            return nhwc.permute(0, 3, 1, 2).contiguous()
 
 
 def score_ladder(
-    reference_u8: np.ndarray, candidates_u8: np.ndarray, config: MetricConfig, device="cuda"
+    reference_u8: np.ndarray, candidates_u8: Candidates, config: MetricConfig, device="cuda"
 ) -> Dict[str, np.ndarray]:
-    """The command-line tools' scorer: the (N, H, W, 3) u8 candidates of one
-    (H, W, 3) reference, staged once, planar, on ``device`` and fetched in
-    one copy, as ``{metric: f64 scores}`` for the metrics ``config`` asks for.
+    """The command-line tools' scorer: the candidates of one (H, W, 3)
+    reference, an (N, H, W, 3) u8 array or N (H, W, 3) u8 arrays, staged
+    once through a buffer of the call's own, planar on ``device``, and
+    fetched in one copy, as ``{metric: f64 scores}`` for the metrics
+    ``config`` asks for.
 
     The JAX package's ``rd_calibrate`` and ``analysis.comparison`` compose
     the metric functions without zeroing a candidate equal to the
     reference, which they score 0 to within their rounding (< 1e-6); the
     batch scorer's stages, which zero it, serve here as they are."""
     dev = resolve_device(device)
+    _check_candidates(candidates_u8, reference_u8)
     with span("ce.scorer.precompute"):
         count("scorer.precompute_miss")
         contig = _count_copy(np.require(reference_u8, requirements="CW"), reference_u8)
         pre = build_precompute(torch.from_numpy(contig).to(dev), config)
-    return fetch_scores(score_chunk(pre, _stage_candidates(candidates_u8, dev), config))
+    return fetch_scores(score_chunk(pre, _Staging(dev).stage(candidates_u8, reference_u8.shape), config))
 
 
 class BatchScorer:
     """Scores batches of decoded candidates against a reference image on one
     device.  The reference precompute is cached by (shape, config, content
     crc), so consecutive chunks against one image skip it, and a caller
-    that reuses its decode buffer cannot leave stale pyramids behind."""
+    that reuses its decode buffer cannot leave stale pyramids behind.  The
+    candidates go through one staging buffer that the scorer keeps."""
 
     def __init__(self, config: MetricConfig, device="cuda"):
         self.config = config
         self.device = resolve_device(device)
         self._ref_key: object = None
         self._ref_pre = None
+        self._staging = _Staging(self.device)
 
     def enabled(self) -> bool:
         c = self.config
@@ -163,19 +221,17 @@ class BatchScorer:
             return self._ref_pre
 
     def score_batch(
-        self, reference_u8: np.ndarray, candidates_u8: np.ndarray
+        self, reference_u8: np.ndarray, candidates_u8: Candidates
     ) -> list[MetricResult]:
-        """reference (H, W, 3) u8; candidates (N, H, W, 3) u8 -> N results."""
-        n = candidates_u8.shape[0]
+        """reference (H, W, 3) u8; candidates (N, H, W, 3) u8, or a sequence
+        of N (H, W, 3) u8 -> N results."""
+        n = len(candidates_u8)
         if n == 0 or not self.enabled():
             return [MetricResult() for _ in range(n)]
-        if candidates_u8.shape[1:] != reference_u8.shape or reference_u8.shape[-1] != 3:
-            raise ValueError(
-                f"candidates {candidates_u8.shape} do not match reference {reference_u8.shape}"
-            )
+        _check_candidates(candidates_u8, reference_u8)
         with span("ce.scorer.score_batch"):
             pre = self.precompute(reference_u8)
-            batch = _stage_candidates(candidates_u8, self.device)
+            batch = self._staging.stage(candidates_u8, reference_u8.shape)
             raw = fetch_scores(score_chunk(pre, batch, self.config))
         return [
             MetricResult(**{k: float(raw[k][i]) if k in raw else None for k in METRICS})
@@ -184,4 +240,4 @@ class BatchScorer:
 
     def score_pair(self, reference_u8: np.ndarray, candidate_u8: np.ndarray) -> MetricResult:
         """One candidate: ``score_batch`` at N = 1, the same route and kernels."""
-        return self.score_batch(reference_u8, candidate_u8[None])[0]
+        return self.score_batch(reference_u8, [candidate_u8])[0]

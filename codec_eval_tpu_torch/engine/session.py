@@ -2,8 +2,9 @@
 
 Port of the host path of ``codec_eval_tpu/engine/session.py`` (reference:
 src/eval/session.rs:280-585).  Codecs are opaque host callbacks; every
-decoded candidate of an image is staged into one batch and scored by the
-``BatchScorer`` on the session's device in one pass.  ``evaluate_corpus``
+decoded candidate of an image goes to the ``BatchScorer`` as one batch (the
+list of decoded arrays, which the scorer copies into its staging buffer) and
+is scored on the session's device in one pass.  ``evaluate_corpus``
 runs a one-slot pipeline: a worker thread encodes and decodes image i+1 on
 the host while the main thread scores image i on the card.
 
@@ -25,11 +26,9 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
-import numpy as np
-
 from ..errors import CodecError, CodecEvalError, DimensionMismatch, InvalidQuality
 from ..metrics import MetricConfig, MetricResult
-from ..utils.profiling import count, span
+from ..utils.profiling import span
 from ..viewing import ViewingCondition
 from .image import ImageData
 from .report import CodecResult, CorpusReport, ImageReport, write_csv_summary, write_json
@@ -395,8 +394,7 @@ class EvalSession:
         decodable = [e for e in staged if e["decoded"] is not None and "metrics" not in e]
         if decodable and self._scorer.enabled():
             with span("ce.session.batch"):
-                batch = np.stack([e["decoded"] for e in decodable])
-                count("staging.host_bytes", batch.nbytes)
+                batch = [e["decoded"] for e in decodable]
                 reference = image.to_rgb8()
             results = self._scorer.score_batch(reference, batch)
             for e, m in zip(decodable, results):

@@ -6,7 +6,8 @@ session records on the calling thread.
   nothing; a profiler on another thread records none of this thread's.
 - Under the profiler, ``evaluate_image``, ``assert_quality``,
   ``score_ladder`` and the corpus runner emit their spans, nested under
-  their call's top span, and count staging bytes and reference precomputes.
+  their call's top span, and count the staging buffer's allocations and
+  reuses, its bytes and reference precomputes.
 - ``device_trace``'s Chrome trace holds the spans.
 - The span form is not a user annotation, so the profiler gives it no
   range on the device timeline.
@@ -150,9 +151,18 @@ def test_evaluate_image_counts_staging_bytes_and_one_miss(tmp_path):
     img = _image()
     session = _session(img, tmp_path)
     _traced(lambda: session.evaluate_image("a", ce.ImageData.rgb8(img)))
-    # The candidates' stack, then their planar copy; nothing is copied to
-    # a device on the CPU.
-    assert profiling.counters() == {"staging.host_bytes": 2 * len(QUALITIES) * H * W * 3,
+    # The scorer's staging buffer, allocated once; nothing is copied to a
+    # device on the CPU.
+    assert profiling.counters() == {"staging.host_bytes": len(QUALITIES) * H * W * 3,
+                                    "staging.buffer_alloc": 1, "scorer.precompute_miss": 1}
+
+
+def test_a_second_call_reuses_the_staging_buffer(tmp_path):
+    img, other = _image(), _image(seed=5)
+    session = _session(img, tmp_path)
+    session.evaluate_image("a", ce.ImageData.rgb8(img))
+    _traced(lambda: session.evaluate_image("b", ce.ImageData.rgb8(other)))
+    assert profiling.counters() == {"staging.host_bytes": 0, "staging.buffer_reuse": 1,
                                     "scorer.precompute_miss": 1}
 
 
@@ -181,8 +191,10 @@ def test_assert_quality_builds_one_precompute_per_call():
 
     verdicts, spans = _traced(gate_calls)
     assert False in verdicts and True in verdicts
+    # A new scorer per call, so a staging buffer of one pair per call.
     assert profiling.counters() == {"scorer.precompute_miss": len(pairs),
-                                    "staging.host_bytes": len(pairs) * H * W * 3}
+                                    "staging.host_bytes": len(pairs) * H * W * 3,
+                                    "staging.buffer_alloc": len(pairs)}
     steps = ["ce.gate.evaluate_single", "ce.scorer.score_batch", "ce.scorer.precompute",
              "ce.scorer.stage", "ce.scorer.dssim", "ce.scorer.ssimulacra2", "ce.scorer.fetch"]
     assert _inside(spans, "ce.gate.assert_quality") == [steps] * len(pairs)
@@ -199,7 +211,8 @@ def test_score_ladder_spans_and_counts():
     assert _names(spans) == ["ce.scorer.precompute", "ce.scorer.stage", "ce.scorer.psnr",
                              "ce.scorer.dssim", "ce.scorer.fetch"]
     assert profiling.counters() == {"scorer.precompute_miss": 1,
-                                    "staging.host_bytes": cands.nbytes}
+                                    "staging.host_bytes": cands.nbytes,
+                                    "staging.buffer_alloc": 1}
 
 
 @pytest.mark.parametrize("masked", [True, False])
