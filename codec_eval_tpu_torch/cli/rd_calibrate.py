@@ -12,7 +12,8 @@ precomputed once) on the card unless ``--device cpu`` asks for the host,
 and per-quality corpus means reduce on the host from the per-image score
 vectors.  ``--device-sweep`` runs tpujpeg's whole calibration sweep
 (encode, decode and score) on the device through
-``parallel.sweep_corpus_ladders``.
+``parallel.sweep_corpus_ladders`` (``sweep_images_device``, which takes
+decoded images).
 
     python -m codec_eval_tpu_torch.cli.rd_calibrate CORPUS --range 10:2:98
     python -m codec_eval_tpu_torch.cli.rd_calibrate CORPUS --format tpujpeg --device-sweep
@@ -24,7 +25,7 @@ import argparse
 import sys
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -36,6 +37,9 @@ from ..metrics import MetricConfig
 from ..stats import CorpusAggregate, WEB_FRAME
 from ..stats.rd_plot import plot_rd_svg
 from . import add_device_argument
+
+if TYPE_CHECKING:
+    from ..parallel import CorpusLadders
 
 
 def parse_range(spec: str) -> List[int]:
@@ -50,11 +54,12 @@ def parse_range(spec: str) -> List[int]:
 
 
 def score_ladder(
-    ref_u8: np.ndarray, batch_u8: np.ndarray, device="cuda"
+    ref_u8: np.ndarray, batch_u8: "np.ndarray | Sequence[np.ndarray]", device="cuda"
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """SSIMULACRA2 and Butteraugli of (N, H, W, 3) u8 candidates against one
-    (H, W, 3) u8 reference, each reference precompute shared across the
-    ladder: the JAX module's ``score_sweep``."""
+    """SSIMULACRA2 and Butteraugli of (N, H, W, 3) u8 candidates, or a list
+    of N (H, W, 3) u8 arrays, against one (H, W, 3) u8 reference, each
+    reference precompute shared across the ladder: the JAX module's
+    ``score_sweep``."""
     scores = _score_ladder(
         ref_u8, batch_u8, MetricConfig(ssimulacra2=True, butteraugli=True), device=device
     )
@@ -92,8 +97,7 @@ def sweep_corpus(
             decoded = codec.decode(data)
             encoded.append((len(data), decoded))
 
-        batch = np.stack([d for _, d in encoded])
-        s2s, bas = score_ladder(rgb, batch, device=device)
+        s2s, bas = score_ladder(rgb, [d for _, d in encoded], device=device)
         for q, (size, _), s2, ba in zip(qualities, encoded, s2s, bas):
             if np.isfinite(s2) and np.isfinite(ba):
                 # Drop non-finite scores (reference: rd_calibrate.rs:144-148).
@@ -155,6 +159,53 @@ RDCalibration(
 )'''
 
 
+def sweep_images_device(
+    images: Sequence[np.ndarray],
+    qualities: Sequence[int],
+    subsampling: str = "420",
+    trellis: bool = False,
+    size_mode: str = "exact",
+    *,
+    device="cuda",
+) -> List[Tuple[List[int], CorpusLadders]]:
+    """The calibration sweep's whole encode / decode / score loop
+    (reference: rd_calibrate.rs:184-216) over decoded (H, W, 3) u8 images,
+    on ``device`` through tpujpeg's ladder runner
+    (``parallel.sweep_corpus_ladders``): SSIMULACRA2 and Butteraugli of
+    every quality, and byte sizes, entropy-coded on the host ("exact") or
+    counted from the device's rate statistics ("device").  ``trellis``
+    quantizes by the trellis DP (lambda 0.10, no AQ), otherwise by AQ
+    rounding (strength 0.30).
+
+    Returns one (input indices, ``CorpusLadders``) per image shape, in the
+    order each shape first appears."""
+    import torch
+
+    from ..parallel import make_mesh, sweep_corpus_ladders
+
+    if size_mode not in ("exact", "device"):
+        raise ValueError(f"size_mode must be 'exact' or 'device', got {size_mode!r}")
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, rgb in enumerate(images):
+        if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.dtype != np.uint8:
+            raise ValueError(f"image {i}: need (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
+        groups.setdefault(rgb.shape[:2], []).append(i)
+    mesh = make_mesh(devices=[torch.device(device)])
+    return [
+        (idx, sweep_corpus_ladders(
+            [images[i] for i in idx],
+            [float(q) for q in qualities],
+            mesh=mesh,
+            subsampling=subsampling,
+            metrics=("ssimulacra2", "butteraugli"),
+            aq_strength=0.0 if trellis else 0.30,
+            trellis_lambda=0.10 if trellis else 0.0,
+            with_sizes="device" if size_mode == "device" else True,
+        ))
+        for idx in groups.values()
+    ]
+
+
 def sweep_corpus_device(
     corpus: Corpus,
     qualities: List[int],
@@ -166,54 +217,34 @@ def sweep_corpus_device(
     *,
     device="cuda",
 ) -> Dict[int, List[Tuple[float, float, float]]]:
-    """The calibration sweep's whole encode / decode / score loop
-    (reference: rd_calibrate.rs:184-216) on ``device`` through tpujpeg's
-    ladder runner (``parallel.ladder_runner``), the images grouped by
-    shape."""
-    from collections import defaultdict
-
-    import torch
-
-    from ..parallel import make_mesh, sweep_corpus_ladders
-
+    """``sweep_images_device`` over a corpus's files (an unreadable file is
+    skipped), folded into per-quality lists of (bpp, s2, ba)."""
     images = corpus.images[:limit] if limit else corpus.images
-    by_shape: Dict[Tuple[int, int], list] = defaultdict(list)
+    rgbs = []
     for corpus_image in images:
         path = corpus_image.full_path(corpus.root_path)
         try:
             from PIL import Image
 
-            rgb = np.asarray(Image.open(path).convert("RGB"))
+            rgbs.append(np.asarray(Image.open(path).convert("RGB")))
         except Exception as e:  # noqa: BLE001 - skip-and-continue policy
             progress(f"  SKIP {corpus_image.relative_path}: {e}")
-            continue
-        by_shape[rgb.shape[:2]].append(rgb)
 
     by_quality: Dict[int, List[Tuple[float, float, float]]] = {q: [] for q in qualities}
-    mesh = make_mesh(devices=[torch.device(device)])
     done = 0
-    total = sum(len(v) for v in by_shape.values())
-    for (h, w), rgbs in by_shape.items():
-        res = sweep_corpus_ladders(
-            rgbs,
-            [float(q) for q in qualities],
-            mesh=mesh,
-            subsampling=subsampling,
-            metrics=("ssimulacra2", "butteraugli"),
-            aq_strength=0.0 if trellis else 0.30,
-            trellis_lambda=0.10 if trellis else 0.0,
-            with_sizes="device" if size_mode == "device" else True,
-        )
+    groups = sweep_images_device(rgbs, qualities, subsampling, trellis, size_mode, device=device)
+    for idx, res in groups:
         s2 = res.scores["ssimulacra2"]
         ba = res.scores["butteraugli"]
-        for ii in range(len(rgbs)):
+        for ii in range(len(idx)):
             for qi, q in enumerate(qualities):
                 if np.isfinite(s2[ii, qi]) and np.isfinite(ba[ii, qi]):
                     by_quality[q].append(
                         (float(res.bits_per_pixel[ii, qi]), float(s2[ii, qi]), float(ba[ii, qi]))
                     )
-        done += len(rgbs)
-        progress(f"  [{done}/{total}] {h}x{w} group ({len(rgbs)} images)")
+        done += len(idx)
+        h, w = rgbs[idx[0]].shape[:2]
+        progress(f"  [{done}/{len(rgbs)}] {h}x{w} group ({len(idx)} images)")
     return by_quality
 
 

@@ -19,6 +19,10 @@ gather from the static (run, size) table, where JAX uses a one-hot matmul.
 
 The host quantizers, the Huffman rate models and the numpy trellis are
 copies of the JAX module's code.
+
+``reconstruct_sweep`` spans its steps (``ce.jpeg.transform``,
+``ce.jpeg.trellis`` or ``ce.jpeg.quantize``, ``ce.jpeg.reconstruct``), which
+record only while a profiler records (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 __all__ = [
     "ZIGZAG",
@@ -453,25 +459,30 @@ def reconstruct_sweep(
     DP under the static rate tables.
     """
     h, w = rgb_u8.shape[:2]
-    planes = transform(rgb_u8, subsampling, colorspace)
+    with span("ce.jpeg.transform"):
+        planes = transform(rgb_u8, subsampling, colorspace)
     zz = torch.from_numpy(ZIGZAG.astype(np.int64)).to(rgb_u8.device)
     q_zz = qtabs.to(torch.float32)[:, :, zz][:, :, None, None, :]  # (n_q, 2, 1, 1, 64)
     ql, qc = q_zz[:, 0], q_zz[:, 1]
     if trellis_lambda > 0.0:
-        cy = trellis_quantize_dev(planes["dct_y"], ql, DEFAULT_AC_LENGTHS_LUMA, trellis_lambda)
-        chroma = torch.stack([planes["dct_cb"], planes["dct_cr"]], dim=1)  # (by, 2, bx, 64)
-        cc = trellis_quantize_dev(chroma, qc[:, :, None], DEFAULT_AC_LENGTHS_CHROMA,
-                                  trellis_lambda)
-        ccb, ccr = cc[:, :, 0], cc[:, :, 1]
+        with span("ce.jpeg.trellis"):
+            cy = trellis_quantize_dev(planes["dct_y"], ql, DEFAULT_AC_LENGTHS_LUMA,
+                                      trellis_lambda)
+            chroma = torch.stack([planes["dct_cb"], planes["dct_cr"]], dim=1)  # (by, 2, bx, 64)
+            cc = trellis_quantize_dev(chroma, qc[:, :, None], DEFAULT_AC_LENGTHS_CHROMA,
+                                      trellis_lambda)
+            ccb, ccr = cc[:, :, 0], cc[:, :, 1]
     else:
-        s = _scalar(aq_strength, rgb_u8)
-        bias_y = torch.clamp(0.5 - s * planes["act_y"], 0.2, 0.5)
-        bias_c = torch.clamp(0.5 - s * planes["act_c"], 0.2, 0.5)
-        cy = _quantize_dev(planes["dct_y"], ql, bias_y)
-        ccb = _quantize_dev(planes["dct_cb"], qc, bias_c)
-        ccr = _quantize_dev(planes["dct_cr"], qc, bias_c)
-    cands = _to_rgb(_reconstruct_plane(cy, ql), _reconstruct_plane(ccb, qc),
-                    _reconstruct_plane(ccr, qc), subsampling, colorspace, h, w)
+        with span("ce.jpeg.quantize"):
+            s = _scalar(aq_strength, rgb_u8)
+            bias_y = torch.clamp(0.5 - s * planes["act_y"], 0.2, 0.5)
+            bias_c = torch.clamp(0.5 - s * planes["act_c"], 0.2, 0.5)
+            cy = _quantize_dev(planes["dct_y"], ql, bias_y)
+            ccb = _quantize_dev(planes["dct_cb"], qc, bias_c)
+            ccr = _quantize_dev(planes["dct_cr"], qc, bias_c)
+    with span("ce.jpeg.reconstruct"):
+        cands = _to_rgb(_reconstruct_plane(cy, ql), _reconstruct_plane(ccb, qc),
+                        _reconstruct_plane(ccr, qc), subsampling, colorspace, h, w)
     if not with_coefs:
         return cands, {}
     return cands, {"y": cy.to(torch.int16), "cb": ccb.to(torch.int16), "cr": ccr.to(torch.int16)}

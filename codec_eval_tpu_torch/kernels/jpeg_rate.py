@@ -8,12 +8,17 @@ bits (a DC symbol s carries s bits, an AC symbol ``sym & 15``), so the
 entropy-coded size of a quality needs only its histograms off the device:
 544 counts (1056 for the progressive script) instead of its coefficient
 planes.  The one term they cannot give is 0xFF byte stuffing, estimated at
-scan_bytes / 368, which leaves file sizes exact to about +-0.15%.
+scan_bytes / 368, which leaves file sizes exact to about +-0.15% on average
+(one file's stuffing varies more: up to ~0.45% on 512 px photo-like ladders).
 
 The device half runs on the coefficients' device over a leading quality
 axis: run lengths from a cumulative max over zigzag positions, and the
 histograms counted in int64 with ``scatter_add_`` (JAX counts with an f32
-one-hot matmul).  The host half is a copy of the JAX module's code.
+one-hot matmul).  The host half is a copy of the JAX module's code, but
+for baseline scan sizes, whose four tables per scan the port's host library
+builds (``utils.native.jpeg_baseline_scan_bits``, one call for any number
+of scans); ``t81_code_sizes``, the Python construction, sizes the
+progressive script and is the tests' reference.
 """
 
 from __future__ import annotations
@@ -195,20 +200,19 @@ def progressive_ladder_rate_stats(
     ], dim=1)
 
 
-# -- host half (copies of the JAX module's code) --------------------------------
+# -- host half -------------------------------------------------------------------
 
 
 def size_estimates_from_packed(
     packed: np.ndarray, app_mode: int = 0
 ) -> list:
-    """Byte-size estimates for a ladder's packed (n_q, 544) statistics."""
-    packed = np.asarray(packed)
-    return [
-        baseline_size_estimate(
-            row[:16], row[16:32], row[32:288], row[288:544], app_mode=app_mode
-        )
-        for row in packed
-    ]
+    """Byte-size estimates for packed (rows, 544) statistics (a ladder's
+    qualities, or a chunk's images x qualities): ``baseline_size_estimate``
+    of every row, in one native call."""
+    from ..utils.native import jpeg_baseline_scan_bits
+
+    bits, nsyms = jpeg_baseline_scan_bits(packed)
+    return [_baseline_file_bytes(int(b), int(n), app_mode) for b, n in zip(bits, nsyms)]
 
 
 def _progressive_ac_extra_bits() -> np.ndarray:
@@ -367,21 +371,14 @@ def scan_bits_from_hists(
     """(exact entropy-coded scan bits, total DHT symbol count) for a
     baseline interleaved scan with optimized tables built from these
     histograms.  Appended bits are derivable from the histograms alone:
-    DC symbol s carries s bits, AC symbol carries (sym & 15)."""
-    bits = 0
-    nsyms = 0
-    dc_extra = np.arange(16, dtype=np.int64)
-    ac_extra = np.arange(256, dtype=np.int64) & 15
-    for freq16, freq256 in ((dc_y, ac_y), (dc_c, ac_c)):
-        dfreq = np.zeros(256, dtype=np.int64)
-        dfreq[:16] = np.asarray(np.rint(freq16), dtype=np.int64)
-        sizes_dc, n_dc = t81_code_sizes(dfreq)
-        afreq = np.asarray(np.rint(freq256), dtype=np.int64)
-        sizes_ac, n_ac = t81_code_sizes(afreq)
-        bits += int((dfreq[:16] * (sizes_dc[:16] + dc_extra)).sum())
-        bits += int((afreq * (sizes_ac + ac_extra)).sum())
-        nsyms += n_dc + n_ac
-    return bits, nsyms
+    DC symbol s carries s bits, AC symbol carries (sym & 15).  The tables
+    are built natively (``utils.native.jpeg_baseline_scan_bits``)."""
+    from ..utils.native import jpeg_baseline_scan_bits
+
+    row = np.concatenate([np.rint(np.asarray(h, dtype=np.float64)).astype(np.int64)
+                          for h in (dc_y, dc_c, ac_y, ac_c)])
+    bits, nsyms = jpeg_baseline_scan_bits(row[None])
+    return int(bits[0]), int(nsyms[0])
 
 
 def baseline_size_estimate(
@@ -400,6 +397,11 @@ def baseline_size_estimate(
     SOS 14, scan, EOI 2.
     """
     bits, nsyms = scan_bits_from_hists(dc_y, dc_c, ac_y, ac_c)
+    return _baseline_file_bytes(bits, nsyms, app_mode)
+
+
+def _baseline_file_bytes(bits: int, nsyms: int, app_mode: int) -> int:
+    """Headers, the flush-padded scan, the stuffing estimate and EOI."""
     scan_bytes = (bits + 7) // 8
     app = 16 if app_mode == 1 else 18
     header = 2 + app + 2 * 69 + 19 + (4 * 21 + nsyms) + 14

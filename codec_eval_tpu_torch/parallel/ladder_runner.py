@@ -20,6 +20,12 @@ up to a multiple of the process count, as JAX pads to a multiple of the
 batch axis); the scores and packed rate statistics are all-gathered over
 the process group, so that every process returns the whole
 ``CorpusLadders``.
+
+Tracing (``utils.profiling``): one ``ce.ladder.sweep`` span per call; in
+it, per image, ``ce.ladder.image`` (the encoder's ``ce.jpeg.*`` spans,
+``ce.ladder.rate`` and ``ce.ladder.score``), per chunk ``ce.ladder.fetch``
+and, with device sizes, ``ce.ladder.sizes``; with exact sizes,
+``ce.ladder.entropy_wait`` per image at the end.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .mesh import all_gather_host, make_mesh
 
 __all__ = ["CorpusLadders", "sweep_corpus_ladders", "LADDER_SCORE_PX"]
@@ -141,22 +148,29 @@ def sweep_corpus_ladders(
         handed to the one-worker entropy pool before its scoring is queued,
         so the host coder runs while the device scores this image and the
         next ones."""
-        img = torch.from_numpy(np.require(images[i], np.uint8, "CW")).to(dev)
-        cands, coefs = _je.reconstruct_sweep(
-            img, torch.from_numpy(qtabs).to(dev), aq_strength, subsampling,
-            with_coefs=size_mode != "none", trellis_lambda=float(trellis_lambda),
-        )
-        stats = None
-        if size_mode == "device":
-            stats = _jr.ladder_rate_stats(coefs["y"], coefs["cb"], coefs["cr"], subsampling)
-        elif size_mode == "exact":
-            host = [coefs[k].cpu().numpy() for k in ("y", "cb", "cr")]
-            encodes.append((i, [size_pool.submit(encode, *host, qi) for qi in range(n_q)]))
-        pre = build_precompute(img, config)
-        parts = [score_chunk(pre, cands[qs:qs + q_chunk], config) for qs in range(0, n_q, q_chunk)]
-        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}, stats
+        with span("ce.ladder.image"):
+            img = torch.from_numpy(np.require(images[i], np.uint8, "CW")).to(dev)
+            cands, coefs = _je.reconstruct_sweep(
+                img, torch.from_numpy(qtabs).to(dev), aq_strength, subsampling,
+                with_coefs=size_mode != "none", trellis_lambda=float(trellis_lambda),
+            )
+            stats = None
+            if size_mode == "device":
+                with span("ce.ladder.rate"):
+                    stats = _jr.ladder_rate_stats(coefs["y"], coefs["cb"], coefs["cr"],
+                                                  subsampling)
+            elif size_mode == "exact":
+                with span("ce.ladder.rate"):
+                    host = [coefs[k].cpu().numpy() for k in ("y", "cb", "cr")]
+                    encodes.append((i, [size_pool.submit(encode, *host, qi)
+                                        for qi in range(n_q)]))
+            with span("ce.ladder.score"):
+                pre = build_precompute(img, config)
+                parts = [score_chunk(pre, cands[qs:qs + q_chunk], config)
+                         for qs in range(0, n_q, q_chunk)]
+                return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}, stats
 
-    with ThreadPoolExecutor(max_workers=1) as size_pool:
+    with span("ce.ladder.sweep"), ThreadPoolExecutor(max_workers=1) as size_pool:
         for start in range(0, n, chunk_n):
             real = min(chunk_n, n - start)
             # One process scores the whole chunk; over processes each scores
@@ -164,20 +178,26 @@ def sweep_corpus_ladders(
             per = -(-real // procs)
             mine = [min(start + i, n - 1) for i in range(pid * per, (pid + 1) * per)]
             rows = [ladder(i, devices[k % len(devices)], size_pool) for k, i in enumerate(mine)]
-            chunk = fetch_scores({k: torch.stack([s[k].to(devices[0]) for s, _ in rows])
-                                  for k in rows[0][0]})
-            if size_mode == "device":
-                chunk["_stats"] = torch.stack([st.to(devices[0]) for _, st in rows]).cpu().numpy()
+            with span("ce.ladder.fetch"):
+                chunk = fetch_scores({k: torch.stack([s[k].to(devices[0]) for s, _ in rows])
+                                      for k in rows[0][0]})
+                if size_mode == "device":
+                    chunk["_stats"] = torch.stack([st.to(devices[0])
+                                                   for _, st in rows]).cpu().numpy()
             if multihost:
                 chunk = all_gather_host(mesh, chunk)
             for k, v in chunk.items():
                 if k != "_stats":
                     all_scores.setdefault(k, []).append(v[:real])
             if size_mode == "device":
-                for ii in range(real):
-                    sizes[start + ii] = _jr.size_estimates_from_packed(chunk["_stats"][ii])
+                # One native call builds the whole chunk's tables.
+                with span("ce.ladder.sizes"):
+                    packed = chunk["_stats"][:real].reshape(real * n_q, -1)
+                    sizes[start:start + real] = np.reshape(
+                        _jr.size_estimates_from_packed(packed), (real, n_q))
         for i, futures in encodes:
-            sizes[i] = [f.result() for f in futures]
+            with span("ce.ladder.entropy_wait"):
+                sizes[i] = [f.result() for f in futures]
 
     return CorpusLadders(
         qualities=[float(q) for q in qualities],

@@ -9,15 +9,18 @@ Two halves:
 - the JPEG half: a ctypes binding of the repository's native host library
   (``native/*.cpp``: the optimized-Huffman entropy coder, baseline and
   progressive, its scan statistics, the Huffman parser behind device
-  decoding, the trellis DP, and FNV-1a over memory).
+  decoding, the trellis DP, and FNV-1a over memory) and of the port's own
+  host sources beside it (``codec_eval_tpu_torch/csrc/*.cpp``: scan sizes
+  from packed symbol counts).
 
-The library is compiled at first use with ``g++`` and ``native/Makefile``'s
-flags into ``build/native/<key>/``, where the key hashes the sources, the
-flags, the compiler and the host, so a checkout never loads a library built
-from other sources or for another machine.  ``native/`` itself is never
-written.  Concurrent processes (test workers) build once: the build runs
-under an exclusive ``fcntl`` lock and lands with an atomic ``os.replace``.
-A failed build raises with the compiler's output; nothing falls back.
+The library is compiled from both at first use with ``g++`` and
+``native/Makefile``'s flags into ``build/native/<key>/``, where the key
+hashes the sources, the flags, the compiler and the host, so a checkout
+never loads a library built from other sources or for another machine.
+``native/`` itself is never written.  Concurrent processes (test
+workers) build once: the build runs under an exclusive ``fcntl`` lock and
+lands with an atomic ``os.replace``.  A failed build raises with the
+compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 
 _REPO = Path(__file__).resolve().parent.parent.parent
 _NATIVE_SRC = _REPO / "native"
+_PORT_SRC = _REPO / "codec_eval_tpu_torch" / "csrc"
 _BUILD = _REPO / "build" / "native"
 #: native/Makefile's CXXFLAGS, plus -shared.
 CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-Wextra", "-std=c++17", "-shared")
@@ -92,9 +96,13 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
+def _sources() -> list:
+    return sorted(_NATIVE_SRC.glob("*.cpp")) + sorted(_PORT_SRC.glob("*.cpp"))
+
+
 def _build_key(compiler: str) -> str:
     h = hashlib.sha256()
-    for src in sorted(_NATIVE_SRC.glob("*.cpp")):
+    for src in _sources():
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     version = subprocess.run([compiler, "--version"], capture_output=True, text=True,
                              check=True).stdout
@@ -119,7 +127,7 @@ def library_path() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not lib.exists():
             tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-            sources = [str(p) for p in sorted(_NATIVE_SRC.glob("*.cpp"))]
+            sources = [str(p) for p in _sources()]
             run = subprocess.run([compiler, *CXXFLAGS, "-o", str(tmp), *sources],
                                  capture_output=True, text=True)
             if run.returncode != 0:
@@ -165,6 +173,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         c.c_void_p, c.c_size_t,
         c.c_void_p, c.c_void_p,
     ]
+    lib.ce_jpeg_baseline_scan_bits.restype = c.c_int64
+    lib.ce_jpeg_baseline_scan_bits.argtypes = [c.c_void_p, c.c_size_t, c.c_void_p, c.c_void_p]
     lib.ce_jpeg_parse.restype = c.c_int64
     lib.ce_jpeg_parse.argtypes = [
         c.c_void_p, c.c_size_t, c.c_void_p,
@@ -285,6 +295,26 @@ def jpeg_scan_stats_progressive(
     return _scan_stats(load().ce_jpeg_scan_stats_progressive,
                        (width, height, _SUBSAMPLING_CODE[subsampling]), 3,
                        y_coeffs, cb_coeffs, cr_coeffs)
+
+
+def jpeg_baseline_scan_bits(packed: np.ndarray) -> tuple:
+    """(scan bits, DHT symbol count), each (rows,) int64, of the baseline
+    scans whose (rows, 544) packed symbol counts are given (the layout of
+    ``kernels.jpeg_rate.ladder_rate_stats``): the four optimized tables of
+    each row built by the entropy coder's T.81 K.2 construction
+    (``csrc/jpeg_scan_bits.cpp``), in one call.  The bits are the codes' and the appended bits', without flush
+    padding or 0xFF stuffing."""
+    p = np.asarray(packed)
+    if p.ndim != 2 or p.shape[1] != 544 or not np.issubdtype(p.dtype, np.integer):
+        raise ValueError(f"packed statistics must be (rows, 544) integers, got {p.shape} {p.dtype}")
+    p = np.ascontiguousarray(p, dtype=np.int64)
+    bits = np.empty(p.shape[0], dtype=np.int64)
+    nsyms = np.empty(p.shape[0], dtype=np.int64)
+    rc = load().ce_jpeg_baseline_scan_bits(p.ctypes.data, p.shape[0], bits.ctypes.data,
+                                           nsyms.ctypes.data)
+    if rc != 0:
+        raise ValueError("packed statistics hold a negative count or a table over 2^32 - 1")
+    return bits, nsyms
 
 
 def jpeg_parse_coefficients(data: bytes) -> dict:
