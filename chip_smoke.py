@@ -130,7 +130,10 @@ each failing loudly:
    eight presets through ``CodecRegistry``, and a JPEG adapter without a
    device sweep (one device decode); the ladder's ms at 512 and 2048 px with
    exact and device sizes, the host entropy pass's share, the trellis DP's
-   ms, the corpus ladder's ms per image and the peak device memory.
+   ms, K10 (the trellis DP's kernel) bit for bit against its plain version
+   and timed beside it and its bound at rd-calibrate's 45-quality luma and
+   chroma shapes, the corpus ladder's ms per image and the peak device
+   memory.
 13. the multi-device layer.  (a) Two processes of this script
    (``--multihost-worker``) on the one card, in a gloo group on a free
    127.0.0.1 port, each on cuda:0 through ``global_batch_mesh()``: the
@@ -207,6 +210,8 @@ PAIR_ONLY = frozenset({"mask_diff_ac", "scale_features_pair"})
 # The kernel that only the masked (mixed-size) path launches: K9, in its
 # candidate and reference forms.
 MASKED_ONLY = frozenset({"candidate_moments", "reference_moments"})
+# The kernel that only the trellis ladders (phase 12) launch: K10.
+TRELLIS_ONLY = frozenset({"trellis_dp"})
 # The mixed-size corpus: buckets of 128 px, and the masked scores held to
 # the exact path at tests/test_parallel.py's tolerance.
 GRANULARITY = 128
@@ -257,7 +262,7 @@ OWN_TIME = {
 # phase 1 prints, and those whose SASS it summarizes (K2's divisions).
 PTXAS_KERNELS = ("scale_features_kernel", "opsin_kernel", "bands_kernel", "malta",
                  "candidate_moments_kernel", "moments_tile_kernel", "blur_kernel",
-                 "mask_diff_ac_kernel")
+                 "mask_diff_ac_kernel", "trellis_dp_kernel")
 # K6 and K7 are instantiated at every radius 1..16; phase 1 reports these:
 # sigma 0.5, the path's 2.7 and 7.16.
 BLUR_RADII = {1: 0.5, 6: 2.7, 16: 7.16}
@@ -475,19 +480,18 @@ def own_device_ms(fn, kernel, calls: int = 10) -> Optional[float]:
     """Device time of the CUDA kernels named ``kernel`` (a name, or a tuple
     of names) per call of ``fn``, from ``torch.profiler``: the kernel alone,
     without the host time between launches that CUDA events over a loop
-    also count.  The wrappers' launch counters give the launches of one
-    call (six for K1's six scales); the mean over the launches the profiler
-    recorded in ``calls`` calls, which after a long profile of many
-    operations may be fewer than it should, times that count.  None if it
-    recorded none."""
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+    also count.  The launchers' counters give the launches of one call (six
+    for K1's six scales); the mean over the launches the profiler recorded
+    in ``calls`` calls, which after a long profile of many operations may be
+    fewer than it should, times that count.  None if it recorded none."""
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS
     from torch.profiler import ProfilerActivity
 
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
-    before = sum(w.launches for w in WRAPPERS.values())
+    before = sum(w.launches for w in LAUNCHERS.values())
     fn()
     torch.cuda.synchronize()
-    per_call = sum(w.launches for w in WRAPPERS.values()) - before
+    per_call = sum(w.launches for w in LAUNCHERS.values()) - before
     for _ in range(2):  # once more if the profiler recorded under half of them
         with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -508,17 +512,17 @@ def own_device_ms(fn, kernel, calls: int = 10) -> Optional[float]:
 
 
 def reset_launches() -> None:
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS
 
-    for fn in WRAPPERS.values():
+    for fn in LAUNCHERS.values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS
 
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
 def sass_summary(kernel: str) -> None:
@@ -1025,11 +1029,11 @@ def expected_pair_launches(side: int, pairs: int, butteraugli_calls: int = 2) ->
     scale; nothing else."""
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     s2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS
 
     fused = sum(ba._fused_diffmap_ok(n, n) for n in (side, (side + 1) // 2))
     n_ba = butteraugli_calls * pairs
-    want = dict.fromkeys(WRAPPERS, 0)
+    want = dict.fromkeys(LAUNCHERS, 0)
     want.update(opsin_xyb=4 * n_ba, bands=4 * n_ba, mask_diff_ac=2 * n_ba,
                 malta_diffmap=fused * n_ba, malta_ac=(2 - fused) * n_ba,
                 scale_features_pair=s2.NUM_SCALES * pairs)
@@ -1501,7 +1505,7 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
     from codec_eval_tpu_torch import parallel as par
     from codec_eval_tpu_torch.kernels import butteraugli as ba
     from codec_eval_tpu_torch.kernels import masked as tm
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, malta
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS, malta
 
     metrics = ("ssimulacra2", "dssim", "butteraugli", "psnr")
     pairs, labels = mixed_corpus(big_u8, big_batch)
@@ -1521,7 +1525,7 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
     t0 = time.perf_counter()
     masked = par.score_pairs_sharded(pairs, **kw)
     first = time.perf_counter() - t0
-    want = dict.fromkeys(WRAPPERS, 0)
+    want = dict.fromkeys(LAUNCHERS, 0)
     want.update(candidate_moments=6 * len(buckets), reference_moments=6 * len(buckets),
                 malta_ac=2 * len(buckets))
     launches = read_launches()
@@ -1615,7 +1619,7 @@ def phase_mixed(big_u8: np.ndarray, big_batch: np.ndarray) -> tuple:
     top_small, top_big = timed[(512, 512)][0], timed[(BIG, BIG)][0]
     k9_rows = []
     for name in ("candidate_moments", "reference_moments"):
-        fn, own = WRAPPERS[name], OWN_TIME[name]
+        fn, own = LAUNCHERS[name], OWN_TIME[name]
         pick = (lambda x1, x2: (x1, x2)) if name == "candidate_moments" else (
             lambda x1, x2: (x1, None))
         k9_rows.append({
@@ -1853,9 +1857,9 @@ def phase_root(ref_u8: np.ndarray, rows_512: dict, bpp_512: dict, launches_512: 
     launches = read_launches()
     check_launches(f"of one evaluate_single at {BIG}px (those of one score_batch)", launches,
                    launches_big)
-    idle = PAIR_ONLY | MASKED_ONLY
+    idle = PAIR_ONLY | MASKED_ONLY | TRELLIS_ONLY
     if any(launches[k] for k in idle) or not all(launches[k] for k in launches if k not in idle):
-        raise AssertionError(f"evaluate_single at {BIG}px: K1-K6 must launch, K7-K9 not")
+        raise AssertionError(f"evaluate_single at {BIG}px: K1-K6 must launch, K7-K10 not")
 
     # The CI gates on the card.
     q5, q100 = rows_512[5].ssimulacra2, rows_512[100].ssimulacra2
@@ -2598,6 +2602,61 @@ def scores_equal(label: str, got: list, want: list, rtol: float) -> float:
     return worst
 
 
+#: K10's f32 operations per block of 64, as the DP needs them: per state
+#: (k, j), 2,016 of them (j < k over 63 steps), the zero-run term
+#: best[j] + (P[k-1] - P[j]) once for both candidates (2), then per
+#: candidate a rate add, a distortion add and a compare (3 each); per
+#: coefficient |F| / q, the two candidates, their distortions and x^2 (12).
+#: The bound divides them by the FMA-counted peak, which overstates what
+#: add-only code can issue by up to two.
+K10_OPS_PER_BLOCK = 8 * sum(range(1, 64)) + 12 * 64
+
+
+def time_k10(ref_u8: np.ndarray, device, card: str) -> dict:
+    """K10 (the trellis DP, ``trellis_quantize_dev`` on the card) beside its
+    plain version at the shapes of rd-calibrate's 512 px ladder, 45
+    qualities: the luma (184,320 blocks) and the stacked chroma (92,160),
+    as ``reconstruct_sweep`` passes them.  Each must launch K10 once and
+    equal the plain version bit for bit; then the bound, the kernel's time
+    through its wrapper (CUDA events), alone (the profiler) and the plain
+    version's."""
+    from codec_eval_tpu_torch.cli import rd_calibrate
+    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
+    from codec_eval_tpu_torch.kernels import jpeg_enc
+
+    qualities = [float(q) for q in rd_calibrate.parse_range(CLI_RANGE)]
+    planes = jpeg_enc.transform(torch.from_numpy(ref_u8).to(device), "420")
+    zz = torch.from_numpy(jpeg_enc.ZIGZAG.astype(np.int64)).to(device)
+    q_zz = torch.from_numpy(_qtabs_for(qualities)).to(device)[:, :, zz][:, :, None, None, :]
+    chroma = torch.stack([planes["dct_cb"], planes["dct_cr"]], dim=1)
+    figures = {}
+    for name, dct, q, table in (
+            ("luma", planes["dct_y"], q_zz[:, 0], jpeg_enc.DEFAULT_AC_LENGTHS_LUMA),
+            ("chroma", chroma, q_zz[:, 1][:, :, None], jpeg_enc.DEFAULT_AC_LENGTHS_CHROMA)):
+        reset_launches()
+        got = jpeg_enc.trellis_quantize_dev(dct, q, table, 0.1)
+        launches = read_launches()
+        check_launches(f"of K10 on the ladder's {name}", launches,
+                       {**dict.fromkeys(launches, 0), "trellis_dp": 1})
+        want = jpeg_enc.trellis_quantize_plain(dct, q, table, 0.1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K10 {name}: {int((got != want).sum())} values differ from "
+                                 "the plain version")
+        blocks = got.numel() // 64
+        bound_ms, by = bound(nbytes(dct, got) + q.shape[0] * 64 * 4, blocks * K10_OPS_PER_BLOCK)
+        row = {"blocks": blocks, "bound_ms": bound_ms, "bound_by": by,
+               "kernel_ms": time_ms(lambda: jpeg_enc.trellis_quantize_dev(dct, q, table, 0.1), 20),
+               "alone_ms": own_device_ms(lambda: jpeg_enc.trellis_quantize_dev(dct, q, table, 0.1),
+                                         "trellis_dp_kernel"),
+               "plain_ms": time_ms(lambda: jpeg_enc.trellis_quantize_plain(dct, q, table, 0.1), 3)}
+        print(f"  K10 {name}, {blocks} blocks: one launch, bit-equal to the plain version; bound "
+              f"{bound_ms:.4f} ms ({by}), kernel {row['kernel_ms']:.4f} ms, alone "
+              f"{row['alone_ms']!r} ms, plain {row['plain_ms']:.2f} ms | {card}")
+        figures[f"k10_{name}"] = row
+        del got, want
+    return figures
+
+
 def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, launches_big: dict,
                  card: str, device: torch.device) -> dict:
     """Phase 12: the device JPEG ladder with no ``device`` given, and no
@@ -2673,11 +2732,21 @@ def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, lau
         picked = pts[QUALITIES.index(50)]
         if codec.encode(ce.ImageData.rgb8(ref_u8), ce.EncodeRequest(50.0)) != picked.data:
             raise AssertionError(f"{label}: the ladder's q50 bytes are not the codec's")
+    # Each trellis ladder runs K10 once on its luma and once on its chroma.
     trellis = TpuJpegCodec(trellis=True)
+    reset_launches()
     t_pts = trellis.device_sweep(ce.ImageData.rgb8(ref_u8), QUALITIES, ("ssimulacra2",),
                                  with_bytes=True)
-    planes = jpeg_enc.jpeg_transform(ref_u8, "420")
+    launches["trellis_sweep"] = read_launches()
+    reset_launches()
     _, t_coefs = ladder_candidates(ref_u8, QUALITIES, device, aq_strength=0.0, trellis_lambda=0.1)
+    launches["trellis_ladder"] = read_launches()
+    for key in ("trellis_sweep", "trellis_ladder"):
+        if launches[key]["trellis_dp"] != 2:
+            raise AssertionError(f"{key}: K10 launched {launches[key]['trellis_dp']} times, not 2")
+    print(f"  K10 launches: {launches['trellis_sweep']['trellis_dp']} in the trellis preset's "
+          f"device sweep, {launches['trellis_ladder']['trellis_dp']} in its ladder")
+    planes = jpeg_enc.jpeg_transform(ref_u8, "420")
     qt = _qtabs_for(QUALITIES)[:, :, jpeg_enc.ZIGZAG]
     differ = total = 0
     worst_size = 0.0
@@ -2842,6 +2911,7 @@ def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, lau
 
     figures["reconstruct_512_ms"], _ = median_ms(reconstruct(0.0))
     figures["reconstruct_512_trellis_ms"], _ = median_ms(reconstruct(0.1))
+    figures.update(time_k10(ref_u8, device, card))
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3058,7 +3128,7 @@ def phase_multi(ref_u8: np.ndarray, big_u8: np.ndarray, big_batch: np.ndarray,
     bands on [cuda:0, cuda:0], held to the unsharded step at 512 and
     2048 px, with windowed K8 held to its plain version on the bands."""
     from codec_eval_tpu_torch import parallel as par
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS
 
     figures: dict = {"card": card}
     launches: dict = {}
@@ -3083,7 +3153,7 @@ def phase_multi(ref_u8: np.ndarray, big_u8: np.ndarray, big_batch: np.ndarray,
     images_per_process = len(data["photos"]) // MH_PROCESSES
     want = {
         "dense": expected_pair_launches(SIZE, per_process, butteraugli_calls=1),
-        "masked": {**dict.fromkeys(WRAPPERS, 0), "candidate_moments": 6,
+        "masked": {**dict.fromkeys(LAUNCHERS, 0), "candidate_moments": 6,
                    "reference_moments": 6, "malta_ac": 2},
         "ladder": {k: images_per_process * v for k, v in launches_512.items()},
     }
@@ -3198,7 +3268,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from codec_eval_tpu_torch.kernels.cuda import WRAPPERS, _lib
+    from codec_eval_tpu_torch.kernels.cuda import LAUNCHERS, WRAPPERS, _lib
 
     args = sys.argv[1:]
     if args[:1] == ["--multihost-worker"]:  # one process of phase 13(a)
@@ -3217,7 +3287,7 @@ def main() -> int:
         shown = True
         for line in _lib.ptxas_report(kernel):
             entry = re.search(r"entry function '\w*?\d((?:malta_\w*?|bands_|scale_features_|"
-                              r"opsin_|candidate_moments_|moments_tile_|blur_|mask_diff_ac_)"
+                              r"opsin_|candidate_moments_|moments_tile_|blur_|mask_diff_ac_|trellis_dp_)"
                               r"kernel)(?:ILi(\d+)E)?", line)
             if entry:
                 arg = f"<{entry.group(2)}>" if entry.group(2) else ""
@@ -3247,7 +3317,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches, rows_512, bpp_512 = phase_slice(
             ref_u8, QUALITIES, [5, 50, 100], Path(tmp), device,
-            idle={"malta_diffmap", "blur", *PAIR_ONLY, *MASKED_ONLY})
+            idle={"malta_diffmap", "blur", *PAIR_ONLY, *MASKED_ONLY, *TRELLIS_ONLY})
     done(3, t0)
 
     t0 = time.perf_counter()
@@ -3261,7 +3331,7 @@ def main() -> int:
           f"at {BIG}px")
     with tempfile.TemporaryDirectory() as tmp:
         launches_big, big_rows, _ = phase_slice(big_u8, BIG_QUALITIES, BIG_PICKS, Path(tmp),
-                                                None, idle=PAIR_ONLY | MASKED_ONLY)
+                                                None, idle=PAIR_ONLY | MASKED_ONLY | TRELLIS_ONLY)
     big_batch = candidates(big_u8, BIG_QUALITIES)
     print(f"  kernels vs plain on the {BIG} px sweep's inputs")
     checks_big = phase_kernels(big_u8, big_batch, device)
@@ -3381,6 +3451,29 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"[12] the device JPEG ladder, no device given | {card}")
     ladder = phase_ladder(ref_u8, big_u8, launches, launches_big, card, device)
+    # K10 runs on the trellis ladders alone: its row holds their launches,
+    # its bit-equality with the plain DP and its timings at rd-calibrate's
+    # luma shape (chroma under "at_chroma"), and 0 launches on every other
+    # path.
+    k10 = LAUNCHERS["trellis_dp"]
+    luma, chroma = ladder["figures"]["k10_luma"], ladder["figures"]["k10_chroma"]
+
+    def k10_times(t: dict) -> dict:
+        return {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "own_device_ms": t["alone_ms"]}
+
+    rows.append({
+        "name": "trellis_dp", "route": "cuda", "source": k10.source, "replaces": k10.replaces,
+        "launches": ladder["launches"]["trellis_ladder"]["trellis_dp"], "max_abs_err": 0.0,
+        **k10_times(luma), "shapes": f"{luma['blocks']} blocks (45-quality 512 px luma)",
+        "at_chroma": {**k10_times(chroma), "shapes": f"{chroma['blocks']} blocks"},
+        "launches_trellis_sweep": ladder["launches"]["trellis_sweep"]["trellis_dp"],
+        "launches_512": launches["trellis_dp"], "launches_2048": launches_big["trellis_dp"],
+        "launches_evaluate_single_512": root["launches_512"]["trellis_dp"],
+        "launches_evaluate_single_2048": root["launches"]["trellis_dp"],
+        "launches_corpus": corpus["launches"]["trellis_dp"],
+        "launches_cli": cli["launches"]["trellis_dp"],
+    })
     for row in rows:
         name = row["name"]
         row["launches_ladder_512"] = ladder["launches"]["512"][name]

@@ -66,6 +66,8 @@ SIGNATURES = {
     "ce_candidate_moments": (P, P, P, I, I, I, I, I, P, P),
     # x1, out, planes, h, w, walk, seg, taps, stream
     "ce_reference_moments": (P, P, I, I, I, I, I, P, P),
+    # dct, q, out, n_q, n_blocks, q_stride, grid, rates, eob, stream
+    "ce_trellis_dp": (P, P, P, I, I, I, I, P, F, P),
 }
 
 

@@ -170,10 +170,12 @@ def time_ms(fn) -> float:
 
 def launches_per_call(fn, kernels) -> int:
     """Kernel launches of one call of ``fn``, read from the launch counters
-    of the ``kernels`` package (``WRAPPERS``) that ``fn`` calls into."""
-    before = sum(w.launches for w in kernels.WRAPPERS.values())
+    of the ``kernels`` package (``LAUNCHERS``, or ``WRAPPERS`` in a
+    checkout that predates K10) that ``fn`` calls into."""
+    launchers = getattr(kernels, "LAUNCHERS", kernels.WRAPPERS).values()
+    before = sum(w.launches for w in launchers)
     fn()
-    return sum(w.launches for w in kernels.WRAPPERS.values()) - before
+    return sum(w.launches for w in launchers) - before
 
 
 def device_ms(fn, per_call: int) -> float | None:

@@ -14,8 +14,10 @@ The DCT is one (blocks, 64) x (64, 64) product per plane against the fused
 DCT-and-zigzag operator.  Chroma upsampling on decode is libjpeg's "fancy"
 triangle filter written elementwise (0.75 / 0.25 of the two nearest
 samples), where JAX multiplies by a sparse operator matrix.  The trellis DP
-runs once per plane over every block of every quality; its rate lookup is a
-gather from the static (run, size) table, where JAX uses a one-hot matmul.
+runs once per plane over every block of every quality: on the card as one
+launch of the hand-written K10 (``csrc/jpeg_trellis.cu``), where JAX
+scans; its plain version's rate lookup is a gather from the static (run,
+size) table, where JAX uses a one-hot matmul.
 
 The host quantizers, the Huffman rate models and the numpy trellis are
 copies of the JAX module's code.
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
+from .cuda import jpeg_trellis
 
 __all__ = [
     "ZIGZAG",
@@ -49,6 +52,7 @@ __all__ = [
     "transform",
     "trellis_quantize_blocks",
     "trellis_quantize_dev",
+    "trellis_quantize_plain",
 ]
 
 #: Natural-order index of each coefficient in zigzag scan order
@@ -693,6 +697,16 @@ def _run_table(lengths_bytes: bytes) -> np.ndarray:
     return rt
 
 
+@functools.lru_cache(maxsize=8)
+def _rate_table(lengths_bytes: bytes, lmbda: float) -> np.ndarray:
+    """lam * RT as K10 takes it: the f32 products the plain version's
+    ``lam * by_size`` forms, laid out (11 sizes, 63 runs)."""
+    rt = np.float32(lmbda) * _run_table(lengths_bytes)
+    out = np.ascontiguousarray(rt.T, dtype=np.float32)
+    out.flags.writeable = False
+    return out
+
+
 def trellis_quantize_dev(
     dct_zz: torch.Tensor,
     q_zz: torch.Tensor,
@@ -700,8 +714,30 @@ def trellis_quantize_dev(
     lmbda: float,
 ) -> torch.Tensor:
     """The trellis DP of ``trellis_quantize_blocks`` on the coefficients'
-    device, with one static rate table.  dct_zz (..., 64) zigzag f32 and
-    q_zz broadcastable against it (a ladder passes (n_q, 1, 1, 64) steps
+    device, with one static rate table: ``trellis_quantize_plain`` on CPU
+    tensors, K10 (``kernels/cuda/jpeg_trellis.py`` ``trellis_dp``, one
+    launch, bit for bit the plain version) on CUDA tensors.  dct_zz
+    (..., 64) zigzag f32; q_zz (n_q, 1, ..., 1, 64), a ladder of steps,
+    gives (n_q, ..., 64) back, and one quality's (64,) or (1, ..., 1, 64)
+    steps of at most dct_zz's rank give its shape (on the CPU any broadcast against dct_zz; on
+    the card these alone).  Returns f32 signed quantized values."""
+    if dct_zz.device.type == "cpu":
+        return trellis_quantize_plain(dct_zz, q_zz, ac_lengths, lmbda)
+    lengths = np.ascontiguousarray(ac_lengths, dtype=np.float32)
+    eob = float(np.float32(lmbda) * lengths[0, 0])
+    return jpeg_trellis.trellis_dp(dct_zz.contiguous(), q_zz,
+                                   _rate_table(lengths.tobytes(), lmbda), eob)
+
+
+def trellis_quantize_plain(
+    dct_zz: torch.Tensor,
+    q_zz: torch.Tensor,
+    ac_lengths: np.ndarray,
+    lmbda: float,
+) -> torch.Tensor:
+    """The plain version of ``trellis_quantize_dev`` (and of K10): the JAX
+    DP's ``scan`` as a loop of eager ops on the coefficients' device.
+    q_zz broadcasts against dct_zz (a ladder passes (n_q, 1, 1, 64) steps
     and gets (n_q, ..., 64) back): every block of every quality runs in one
     DP of 63 steps.  Returns f32 signed quantized values.
 
