@@ -2567,11 +2567,10 @@ TRELLIS_SIZE_TOL = 0.001
 def ladder_candidates(rgb: np.ndarray, qualities, device, **kw) -> tuple:
     """The candidates (n_q, 3, H, W) and int16 coefficients of
     ``evaluate_tpujpeg_sweep``'s ladder with the same settings."""
-    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
     from codec_eval_tpu_torch.kernels import jpeg_enc
 
     cs = kw.get("colorspace", "ycbcr")
-    qt = torch.from_numpy(_qtabs_for(qualities, cs)).to(device)
+    qt = torch.from_numpy(jpeg_enc.qtabs_for(qualities, cs)).to(device)
     return jpeg_enc.reconstruct_sweep(
         torch.from_numpy(rgb).to(device), qt, kw.get("aq_strength", 0.30),
         "444" if cs == "xyb" else kw.get("subsampling", "420"), cs,
@@ -2621,13 +2620,12 @@ def time_k10(ref_u8: np.ndarray, device, card: str) -> dict:
     through its wrapper (CUDA events), alone (the profiler) and the plain
     version's."""
     from codec_eval_tpu_torch.cli import rd_calibrate
-    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
     from codec_eval_tpu_torch.kernels import jpeg_enc
 
     qualities = [float(q) for q in rd_calibrate.parse_range(CLI_RANGE)]
     planes = jpeg_enc.transform(torch.from_numpy(ref_u8).to(device), "420")
     zz = torch.from_numpy(jpeg_enc.ZIGZAG.astype(np.int64)).to(device)
-    q_zz = torch.from_numpy(_qtabs_for(qualities)).to(device)[:, :, zz][:, :, None, None, :]
+    q_zz = torch.from_numpy(jpeg_enc.qtabs_for(qualities)).to(device)[:, :, zz][:, :, None, None, :]
     chroma = torch.stack([planes["dct_cb"], planes["dct_cr"]], dim=1)
     figures = {}
     for name, dct, q, table in (
@@ -2670,7 +2668,6 @@ def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, lau
     from codec_eval_tpu_torch.codecs import TpuJpegCodec, decode_jpeg_device, score_jpeg_files
     from codec_eval_tpu_torch.codecs.jpeg_device import _decode_parsed, parse_jpeg
     from codec_eval_tpu_torch.engine import encode_to_target, evaluate_tpujpeg_sweep
-    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
     from codec_eval_tpu_torch.iter.source import photo_sources
     from codec_eval_tpu_torch.kernels import jpeg_enc
     from codec_eval_tpu_torch.parallel import sweep_corpus_ladders
@@ -2747,7 +2744,7 @@ def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, lau
     print(f"  K10 launches: {launches['trellis_sweep']['trellis_dp']} in the trellis preset's "
           f"device sweep, {launches['trellis_ladder']['trellis_dp']} in its ladder")
     planes = jpeg_enc.jpeg_transform(ref_u8, "420")
-    qt = _qtabs_for(QUALITIES)[:, :, jpeg_enc.ZIGZAG]
+    qt = jpeg_enc.qtabs_for(QUALITIES)[:, :, jpeg_enc.ZIGZAG]
     differ = total = 0
     worst_size = 0.0
     for qi, q in enumerate(QUALITIES):
@@ -2892,7 +2889,7 @@ def phase_ladder(ref_u8: np.ndarray, big_u8: np.ndarray, launches_512: dict, lau
         lambda: evaluate_tpujpeg_sweep(ref_u8, QUALITIES, with_sizes=False))
     _, coefs = ladder_candidates(ref_u8, QUALITIES, device)
     host = [coefs[k].cpu().numpy() for k in ("y", "cb", "cr")]
-    qt = _qtabs_for(QUALITIES).astype(np.uint16)[:, :, jpeg_enc.ZIGZAG]
+    qt = jpeg_enc.qtabs_for(QUALITIES).astype(np.uint16)[:, :, jpeg_enc.ZIGZAG]
 
     def entropy_pass():
         return [native.jpeg_encode_baseline(SIZE, SIZE, "420", host[0][i], host[1][i], host[2][i],

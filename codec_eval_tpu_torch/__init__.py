@@ -21,6 +21,7 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .device import resolve_device  # noqa: E402
 from .engine import (  # noqa: E402
     BatchScorer,
     CodecResult,
@@ -72,7 +73,6 @@ def xyb_roundtrip(rgb_u8, width=None, height=None, device="cuda"):
     """
     import numpy as np
 
-    from .engine.scoring import resolve_device
     from .kernels import color as _kc
 
     dev = resolve_device(device)

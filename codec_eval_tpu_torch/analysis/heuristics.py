@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
+
 #: Feature order for CSV output (matches the reference's struct order).
 FEATURE_NAMES = [
     "mean_luminance",
@@ -160,8 +162,6 @@ def compute_heuristics(rgb_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
 def heuristics_batch(batch_u8: np.ndarray, device="cuda") -> List[Dict[str, float]]:
     """(N, H, W, 3) batch -> list of feature dicts: one pass on ``device``
     (the card unless the caller asks for ``"cpu"``) and one copy back."""
-    from ..engine.scoring import resolve_device
-
     x = torch.from_numpy(np.require(batch_u8, requirements="CW")).to(resolve_device(device))
     feats = _features(x)
     names = sorted(feats)

@@ -25,6 +25,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..engine.scoring import METRICS
 from ..utils import native as _native
 
 __all__ = [
@@ -34,9 +36,6 @@ __all__ = [
     "decode_jpeg_to_device",
     "score_jpeg_files",
 ]
-
-_METRICS = ("dssim", "ssimulacra2", "butteraugli", "psnr")
-
 
 def is_available() -> bool:
     """True once the native parser is loaded; a failed build raises."""
@@ -75,8 +74,6 @@ def _decode_parsed(parsed: List[dict], device: torch.device) -> torch.Tensor:
 def decode_jpeg_to_device(data: bytes, device="cuda") -> torch.Tensor:
     """Parse on the host, reconstruct on ``device`` (the card unless the
     caller asks for the CPU): the planar (3, H, W) u8 tensor, left there."""
-    from ..engine.scoring import resolve_device
-
     return _decode_parsed([parse_jpeg(data)], resolve_device(device))[0]
 
 
@@ -88,7 +85,7 @@ def decode_jpeg_device(data: bytes, device="cuda") -> np.ndarray:
 def score_jpeg_files(
     ref_u8: np.ndarray,
     candidates: Sequence[bytes],
-    metrics: Sequence[str] = _METRICS,
+    metrics: Sequence[str] = METRICS,
     parse_pool: Optional[ThreadPoolExecutor] = None,
     device="cuda",
 ) -> List[Dict[str, float]]:
@@ -98,13 +95,12 @@ def score_jpeg_files(
     colorspace, block grid) decodes as one batch and is scored as one chunk
     by the batch scorer's stages.  Returns one {metric: score} per
     candidate, in input order."""
-    from ..engine.scoring import build_precompute, fetch_scores, resolve_device, score_chunk
+    from ..engine.scoring import build_precompute, fetch_scores, metric_config, score_chunk
     from ..errors import DimensionMismatch
-    from ..metrics import MetricConfig
 
     dev = resolve_device(device)
     h, w = ref_u8.shape[:2]
-    config = MetricConfig(**{m: m in metrics for m in _METRICS})
+    config = metric_config(metrics)
     parsed = (list(parse_pool.map(parse_jpeg, candidates)) if parse_pool is not None
               else [parse_jpeg(d) for d in candidates])
     for p in parsed:

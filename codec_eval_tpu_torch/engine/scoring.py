@@ -19,6 +19,7 @@ from typing import Dict, Sequence, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.butteraugli import butteraugli_batch, precompute_butteraugli_reference
 from ..kernels.color import srgb_u8_to_linear, xyb_roundtrip
 from ..kernels.dssim import dssim_against_reference, precompute_dssim_reference
@@ -30,16 +31,13 @@ from ..utils.profiling import count, span
 METRICS = ("dssim", "ssimulacra2", "butteraugli", "psnr")
 
 
-def resolve_device(device) -> torch.device:
-    """The scorer's device: "cpu" or a CUDA device that exists.  Nothing
-    falls back: asking for CUDA without a card is an error."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}: use 'cpu' or 'cuda'")
-    return dev
+def metric_config(names: Sequence[str]) -> MetricConfig:
+    """The ``MetricConfig`` that turns on the metrics named in ``names``
+    (names of ``METRICS``); an unknown name is an error."""
+    unknown = sorted(set(names) - set(METRICS))
+    if unknown:
+        raise ValueError(f"unknown metrics {unknown}: the scorer has {list(METRICS)}")
+    return MetricConfig(**{m: m in names for m in METRICS})
 
 
 def build_precompute(ref_u8: torch.Tensor, config: MetricConfig) -> Dict[str, object]:

@@ -32,7 +32,7 @@ from ..utils.profiling import span
 from ..viewing import ViewingCondition
 from .image import ImageData
 from .report import CodecResult, CorpusReport, ImageReport, write_csv_summary, write_json
-from .scoring import BatchScorer
+from .scoring import METRICS, BatchScorer
 
 #: Encode callback: (ImageData, EncodeRequest) -> bytes
 EncodeFn = Callable[["ImageData", "EncodeRequest"], bytes]
@@ -303,8 +303,7 @@ class EvalSession:
 
     def _wanted(self) -> tuple:
         m = self.config.metrics
-        return tuple(k for k, on in (("dssim", m.dssim), ("ssimulacra2", m.ssimulacra2),
-                                     ("butteraugli", m.butteraugli), ("psnr", m.psnr)) if on)
+        return tuple(k for k in METRICS if getattr(m, k))
 
     def _device_sweep_ok(self, codec: _CodecEntry) -> bool:
         return (

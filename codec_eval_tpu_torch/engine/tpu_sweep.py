@@ -9,8 +9,15 @@ DCT (``kernels.jpeg_enc.reconstruct_sweep``) and the batch scorer's stages
 (``engine.scoring``) run one after the other on one device.  The host's
 only work is the optional entropy pass that turns the quantized
 coefficients into real .jpg bytes for exact sizes: it runs in a worker
-thread, started before the scoring is queued, so it overlaps the scoring.  ``with_sizes="device"`` takes the sizes from device rate
-statistics instead (``kernels.jpeg_rate``).
+thread, started before the scoring is queued, so it overlaps the scoring.
+``with_sizes="device"`` takes the sizes from device rate statistics
+instead (``kernels.jpeg_rate``).
+
+One image's ladder is written once, in ``_image_ladder``: this module's
+sweep runs it for one image, ``parallel.ladder_runner`` for each image of a
+corpus.  Its spans (``utils.profiling``): ``ce.ladder.image`` around the
+encoder's ``ce.jpeg.*`` spans, ``ce.ladder.rate`` (with sizes) and
+``ce.ladder.score``.
 
 The scored pixels are this package's own decode of the bytes
 (``codecs.jpeg_device`` gives the same candidates).
@@ -18,20 +25,20 @@ The scored pixels are this package's own decode of the bytes
 
 from __future__ import annotations
 
-import contextlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import jpeg_enc as _je
 from ..utils import native as _native
+from ..utils.profiling import span
+from . import scoring
 
 __all__ = ["TpuSweepPoint", "evaluate_tpujpeg_sweep", "encode_to_target"]
-
-_METRICS = ("dssim", "ssimulacra2", "butteraugli", "psnr")
 
 
 @dataclass
@@ -45,17 +52,6 @@ class TpuSweepPoint:
     data: Optional[bytes] = None  # the .jpg bytes, when return_bytes=True
 
 
-def _qtabs_for(qualities: Sequence[float], colorspace: str = "ycbcr") -> np.ndarray:
-    """(n_q, 2, 64) natural-order f32 steps of each quality."""
-    if colorspace == "xyb":
-        bases = (_je.XYB_LUMA_BASE, _je.XYB_CHROMA_BASE)
-    else:
-        bases = (_je.ANNEX_K_LUMA, _je.ANNEX_K_CHROMA)
-    return np.stack(
-        [np.stack(_je.quality_to_qtables(q, *bases)).astype(np.float32) for q in qualities]
-    )
-
-
 def _size_mode(with_sizes) -> str:
     mode = {True: "exact", False: "none"}.get(with_sizes, with_sizes)
     if mode not in ("exact", "none", "device"):
@@ -63,12 +59,67 @@ def _size_mode(with_sizes) -> str:
     return mode
 
 
+def _image_ladder(
+    image_u8: np.ndarray, dev: torch.device, qtabs: np.ndarray, subsampling: str,
+    aq_strength: float, colorspace: str, progressive: bool, trellis_lambda: float,
+    metrics: Sequence[str], size_mode: str, pool: Optional[ThreadPoolExecutor], q_chunk: int,
+) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor], List[Future]]:
+    """One image's whole ladder on ``dev``, with nothing fetched but what
+    the host coder needs: ``evaluate_tpujpeg_sweep`` and
+    ``parallel.ladder_runner`` both run it.
+
+    ``qtabs`` is ``jpeg_enc.qtabs_for``'s (n_q, 2, 64) stack; the quality
+    axis is scored ``q_chunk`` qualities at a time.  Returns the scores
+    ({metric: (n_q,)} on ``dev``), with ``size_mode="device"`` the packed
+    rate statistics (on ``dev``), and with ``"exact"`` the futures of each
+    quality's .jpg bytes: the coefficients are fetched and handed to
+    ``pool`` before the scoring is queued, and the native coder releases
+    the interpreter lock, so it runs while this thread queues the scoring.
+    """
+    from ..kernels import jpeg_rate as _jr
+
+    h, w = image_u8.shape[:2]
+    n_q = len(qtabs)
+    config = scoring.metric_config(metrics)
+    app_mode = 1 if colorspace == "xyb" else 0
+    stats, pending = None, []
+    with span("ce.ladder.image"):
+        img = torch.from_numpy(np.require(image_u8, np.uint8, "CW")).to(dev)
+        cands, coefs = _je.reconstruct_sweep(
+            img, torch.from_numpy(qtabs).to(dev), aq_strength, subsampling, colorspace,
+            with_coefs=size_mode != "none", trellis_lambda=float(trellis_lambda),
+        )
+        if size_mode == "device":
+            with span("ce.ladder.rate"):
+                planes = (coefs["y"], coefs["cb"], coefs["cr"])
+                stats = (_jr.progressive_ladder_rate_stats(*planes, h, w, subsampling)
+                         if progressive else _jr.ladder_rate_stats(*planes, subsampling))
+        elif size_mode == "exact":
+            with span("ce.ladder.rate"):
+                cy, ccb, ccr = (coefs[k].cpu().numpy() for k in ("y", "cb", "cr"))
+                qt_zz = qtabs.astype(np.uint16)[:, :, _je.ZIGZAG]
+
+                def encode(qi: int) -> bytes:
+                    return _native.jpeg_encode_baseline(
+                        w, h, subsampling, cy[qi], ccb[qi], ccr[qi], qt_zz[qi, 0], qt_zz[qi, 1],
+                        app_mode=app_mode, progressive=progressive,
+                    )
+
+                pending = [pool.submit(encode, qi) for qi in range(n_q)]
+        with span("ce.ladder.score"):
+            pre = scoring.build_precompute(img, config)
+            parts = [scoring.score_chunk(pre, cands[qs:qs + q_chunk], config)
+                     for qs in range(0, n_q, q_chunk)]
+            scores = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return scores, stats, pending
+
+
 def evaluate_tpujpeg_sweep(
     image_u8: np.ndarray,
     qualities: Sequence[float],
     subsampling: str = "420",
     aq_strength: float = 0.30,
-    metrics: Sequence[str] = _METRICS,
+    metrics: Sequence[str] = scoring.METRICS,
     with_sizes: "bool | str" = True,
     size_pool: Optional[ThreadPoolExecutor] = None,
     colorspace: str = "ycbcr",
@@ -88,64 +139,29 @@ def evaluate_tpujpeg_sweep(
     keeps each quality's .jpg bytes (and implies exact sizes).
     trellis_lambda > 0 runs the trellis DP in place of the AQ bias.
     """
-    from ..metrics import MetricConfig
-    from .scoring import build_precompute, fetch_scores, resolve_device, score_chunk
-
     size_mode = "exact" if return_bytes else _size_mode(with_sizes)
     dev = resolve_device(device)
     h, w = image_u8.shape[:2]
     n_q = len(qualities)
-    config = MetricConfig(**{m: m in metrics for m in _METRICS})
     if colorspace == "xyb":
         subsampling = "444"
-    app_mode = 1 if colorspace == "xyb" else 0
-
-    img = torch.from_numpy(np.require(image_u8, np.uint8, "CW")).to(dev)
-    host_qtabs = _qtabs_for(qualities, colorspace)
-    cands, coefs = _je.reconstruct_sweep(
-        img, torch.from_numpy(host_qtabs).to(dev), aq_strength, subsampling, colorspace,
-        with_coefs=size_mode != "none", trellis_lambda=float(trellis_lambda),
-    )
+    with ThreadPoolExecutor(max_workers=1) as own_pool:
+        scores, stats, pending = _image_ladder(
+            image_u8, dev, _je.qtabs_for(qualities, colorspace), subsampling, aq_strength,
+            colorspace, progressive, trellis_lambda, metrics, size_mode, size_pool or own_pool, n_q)
+        datas = [f.result() for f in pending]
     sizes: List[Optional[int]] = [None] * n_q
-    blobs: List[Optional[bytes]] = [None] * n_q
-    with contextlib.ExitStack() as stack:
-        pending = []
-        if size_mode == "exact":
-            # The coefficients are fetched and the entropy pass started in a
-            # worker thread before the scoring is queued: the native coder
-            # releases the interpreter lock, so it runs while this thread
-            # issues the scorer's launches.
-            cy, ccb, ccr = (coefs[k].cpu().numpy() for k in ("y", "cb", "cr"))
+    if size_mode == "exact":
+        sizes = [len(d) for d in datas]
+    elif size_mode == "device":
+        from ..kernels import jpeg_rate as _jr
 
-            def encode_of(qi: int) -> bytes:
-                ql = host_qtabs[qi, 0].astype(np.uint16)
-                qc = host_qtabs[qi, 1].astype(np.uint16)
-                return _native.jpeg_encode_baseline(
-                    w, h, subsampling, cy[qi], ccb[qi], ccr[qi], ql[_je.ZIGZAG], qc[_je.ZIGZAG],
-                    app_mode=app_mode, progressive=progressive,
-                )
+        estimate = (_jr.progressive_size_estimates_from_packed if progressive
+                    else _jr.size_estimates_from_packed)
+        sizes = estimate(stats.cpu().numpy(), app_mode=1 if colorspace == "xyb" else 0)
+    blobs = datas if return_bytes else [None] * n_q
 
-            pool = size_pool or stack.enter_context(ThreadPoolExecutor(max_workers=1))
-            pending = [pool.submit(encode_of, qi) for qi in range(n_q)]
-        scores = score_chunk(build_precompute(img, config), cands, config)
-        if size_mode == "device":
-            from ..kernels import jpeg_rate as _jr
-
-            if progressive:
-                st = _jr.progressive_ladder_rate_stats(coefs["y"], coefs["cb"], coefs["cr"], h,
-                                                       w, subsampling)
-                sizes = _jr.progressive_size_estimates_from_packed(st.cpu().numpy(),
-                                                                   app_mode=app_mode)
-            else:
-                st = _jr.ladder_rate_stats(coefs["y"], coefs["cb"], coefs["cr"], subsampling)
-                sizes = _jr.size_estimates_from_packed(st.cpu().numpy(), app_mode=app_mode)
-        elif size_mode == "exact":
-            datas = [f.result() for f in pending]
-            sizes = [len(d) for d in datas]
-            if return_bytes:
-                blobs = datas
-
-    host_scores = fetch_scores(scores)
+    host_scores = scoring.fetch_scores(scores)
     return [
         TpuSweepPoint(
             quality=float(q),

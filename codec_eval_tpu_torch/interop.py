@@ -17,7 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .engine.scoring import resolve_device
+from .device import resolve_device
 from .kernels.butteraugli import ButteraugliParams, ButteraugliReference, PsychoImage
 from .kernels.dssim import DssimReference
 from .kernels.ssimulacra2 import Ssimulacra2Reference

@@ -21,7 +21,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..engine.scoring import resolve_device
+from ..device import resolve_device
 from ..kernels.ssimulacra2 import ssimulacra2_batch
 
 

@@ -35,6 +35,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..utils.profiling import span
 from .cuda import jpeg_trellis
 
@@ -46,6 +47,7 @@ __all__ = [
     "huffman_code_lengths",
     "jpeg_decode",
     "jpeg_transform",
+    "qtabs_for",
     "quality_to_qtables",
     "quantize_blocks",
     "reconstruct_sweep",
@@ -197,6 +199,18 @@ def quality_to_qtables(
     return scaled(np.asarray(base_luma)), scaled(np.asarray(base_chroma))
 
 
+def qtabs_for(qualities, colorspace: str = "ycbcr") -> np.ndarray:
+    """(n_q, 2, 64) natural-order f32 steps of each quality: the tables a
+    ladder's ``reconstruct_sweep`` takes (XYB's bases for ``"xyb"``)."""
+    if colorspace == "xyb":
+        bases = (XYB_LUMA_BASE, XYB_CHROMA_BASE)
+    else:
+        bases = (ANNEX_K_LUMA, ANNEX_K_CHROMA)
+    return np.stack(
+        [np.stack(quality_to_qtables(q, *bases)).astype(np.float32) for q in qualities]
+    )
+
+
 @functools.lru_cache(maxsize=1)
 def _zigzag_dct_matrix() -> np.ndarray:
     """The fused 2-D DCT and zigzag as one orthonormal 64 x 64 matrix W:
@@ -331,8 +345,6 @@ def jpeg_transform(
 ) -> Dict[str, np.ndarray]:
     """Host entry: ``transform`` on ``device`` (the card unless the caller
     asks for the CPU), the planes fetched to numpy."""
-    from ..engine.scoring import resolve_device
-
     rgb = torch.from_numpy(np.require(rgb_u8, np.uint8, "CW")).to(resolve_device(device))
     return {k: v.cpu().numpy() for k, v in transform(rgb, subsampling, colorspace).items()}
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..utils.profiling import span
 from . import butteraugli as ba
 from . import dssim as ds
@@ -400,8 +401,6 @@ def _fused_masked_all(refs_pad: torch.Tensor, dists_pad: torch.Tensor, valid_hw)
 
 
 def _score_buckets(pairs, granularity: int, batch: int, device, fn) -> dict:
-    from ..engine.scoring import resolve_device  # the engine imports this package
-
     dev = resolve_device(device)
     out: dict = {}
     for chunk, refs, dists, hw in _bucketed_chunks(pairs, granularity, batch):

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .color import linear_to_srgb_u8, srgb_u8_to_linear
 
 # The method names ``jax.image.resize`` accepts (``ResizeMethod.from_string``).
@@ -140,8 +141,6 @@ def resize_u8(image_u8, target_h: int, target_w: int, method: str = "linear",
     browsers approximate), then re-encodes to sRGB u8.  Takes numpy or a
     tensor; returns a tensor on ``device``.
     """
-    from ..engine.scoring import resolve_device  # the engine imports this package
-
     dev = resolve_device(device)
     if not isinstance(image_u8, torch.Tensor):
         image_u8 = torch.from_numpy(np.ascontiguousarray(image_u8))

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..color import ColorProfile, prepare_for_comparison
+from ..device import resolve_device
 from ..errors import DimensionMismatch
 from ..kernels.butteraugli import butteraugli
 from ..kernels.dssim import dssim_u8
@@ -46,8 +47,6 @@ def _check(ref: np.ndarray, test: np.ndarray) -> None:
 
 def _pair(reference, test, width, height, device) -> tuple[torch.Tensor, torch.Tensor]:
     """Both images as (H, W, 3) u8 tensors on the resolved device."""
-    from ..engine.scoring import resolve_device  # the engine imports this package
-
     dev = resolve_device(device)
     ref = _as_image(reference, width, height)
     tst = _as_image(test, width, height)

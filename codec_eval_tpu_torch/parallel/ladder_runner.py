@@ -1,7 +1,8 @@
 """Corpus-scale tpujpeg ladders on a device mesh.
 
 Port of ``codec_eval_tpu/parallel/ladder_runner.py``: the corpus form of
-``engine.tpu_sweep``, the device replacement for the reference's
+``engine.tpu_sweep``, whose one per-image ladder it runs for each image,
+the device replacement for the reference's
 calibration hot path (reference: crates/codec-compare/src/rd_calibrate.rs:
 184-216, rayon threads fanning encodes and CPU metrics over a corpus).
 Each image's whole ladder (encode, decode, score) runs on a device of the
@@ -37,6 +38,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..engine.scoring import METRICS
 from ..utils.profiling import span
 from .mesh import all_gather_host, make_mesh
 
@@ -46,8 +48,6 @@ __all__ = ["CorpusLadders", "sweep_corpus_ladders", "LADDER_SCORE_PX"]
 #: chunks of at most this many pixels (the JAX package's default), which
 #: bounds the scorer's temporaries at large image sizes.
 LADDER_SCORE_PX = 21_000_000
-
-_METRICS = ("dssim", "ssimulacra2", "butteraugli", "psnr")
 
 
 @dataclass
@@ -71,13 +71,17 @@ class CorpusLadders:
         ]
 
 
+def _lengths(futures) -> List[int]:
+    return [len(f.result()) for f in futures]
+
+
 def sweep_corpus_ladders(
     images: Sequence[np.ndarray],
     qualities: Sequence[float],
     mesh=None,
     subsampling: str = "420",
     aq_strength: float = 0.30,
-    metrics: Sequence[str] = _METRICS,
+    metrics: Sequence[str] = METRICS,
     with_sizes: "bool | str" = True,
     images_per_chunk: int = 8,
     trellis_lambda: float = 0.0,
@@ -98,14 +102,12 @@ def sweep_corpus_ladders(
     ``with_sizes`` False or "device": exact sizes would entropy-code on
     the host once per process.
     """
-    from ..engine.scoring import build_precompute, fetch_scores, score_chunk
-    from ..engine.tpu_sweep import _qtabs_for, _size_mode
+    from ..engine import tpu_sweep
+    from ..engine.scoring import fetch_scores
     from ..kernels import jpeg_enc as _je
     from ..kernels import jpeg_rate as _jr
-    from ..metrics import MetricConfig
-    from ..utils import native as _native
 
-    size_mode = _size_mode(with_sizes)
+    size_mode = tpu_sweep._size_mode(with_sizes)
     if multihost and size_mode == "exact":
         raise ValueError(
             "multihost ladders need with_sizes=False or 'device' "
@@ -124,10 +126,8 @@ def sweep_corpus_ladders(
     procs, pid = mesh.process_count, mesh.process_index
     devices = list(mesh.devices[:, 0])
     n_q = len(qualities)
-    config = MetricConfig(**{m: m in metrics for m in _METRICS})
     q_chunk = max(1, min(n_q, LADDER_SCORE_PX // (h * w)))
-    qtabs = _qtabs_for(qualities)
-    qt_zz = [tuple(t[_je.ZIGZAG] for t in _je.quality_to_qtables(q)) for q in qualities]
+    qtabs = _je.qtabs_for(qualities)
     if h * w > 512 * 512:
         images_per_chunk = max(1, images_per_chunk * (512 * 512) // (h * w))
     chunk_n = -(-images_per_chunk // procs) * procs
@@ -137,39 +137,6 @@ def sweep_corpus_ladders(
     sizes = np.zeros((n, n_q), dtype=np.int64) if size_mode != "none" else None
     encodes: List[tuple] = []
 
-    def encode(cy, ccb, ccr, qi: int) -> int:
-        ql, qc = qt_zz[qi]
-        return len(_native.jpeg_encode_baseline(w, h, subsampling, cy[qi], ccb[qi], ccr[qi],
-                                                ql, qc))
-
-    def ladder(i: int, dev: torch.device, size_pool: ThreadPoolExecutor) -> tuple:
-        """Image i's scores (on ``dev``), and its packed statistics with
-        device sizes.  With exact sizes its coefficients are fetched and
-        handed to the one-worker entropy pool before its scoring is queued,
-        so the host coder runs while the device scores this image and the
-        next ones."""
-        with span("ce.ladder.image"):
-            img = torch.from_numpy(np.require(images[i], np.uint8, "CW")).to(dev)
-            cands, coefs = _je.reconstruct_sweep(
-                img, torch.from_numpy(qtabs).to(dev), aq_strength, subsampling,
-                with_coefs=size_mode != "none", trellis_lambda=float(trellis_lambda),
-            )
-            stats = None
-            if size_mode == "device":
-                with span("ce.ladder.rate"):
-                    stats = _jr.ladder_rate_stats(coefs["y"], coefs["cb"], coefs["cr"],
-                                                  subsampling)
-            elif size_mode == "exact":
-                with span("ce.ladder.rate"):
-                    host = [coefs[k].cpu().numpy() for k in ("y", "cb", "cr")]
-                    encodes.append((i, [size_pool.submit(encode, *host, qi)
-                                        for qi in range(n_q)]))
-            with span("ce.ladder.score"):
-                pre = build_precompute(img, config)
-                parts = [score_chunk(pre, cands[qs:qs + q_chunk], config)
-                         for qs in range(0, n_q, q_chunk)]
-                return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}, stats
-
     with span("ce.ladder.sweep"), ThreadPoolExecutor(max_workers=1) as size_pool:
         for start in range(0, n, chunk_n):
             real = min(chunk_n, n - start)
@@ -177,13 +144,22 @@ def sweep_corpus_ladders(
             # its contiguous slice of the chunk padded to a multiple of them.
             per = -(-real // procs)
             mine = [min(start + i, n - 1) for i in range(pid * per, (pid + 1) * per)]
-            rows = [ladder(i, devices[k % len(devices)], size_pool) for k, i in enumerate(mine)]
+            # With exact sizes the one-worker pool codes each image's ladder
+            # while the device scores it and the next ones.
+            rows = [tpu_sweep._image_ladder(
+                images[i], devices[k % len(devices)], qtabs, subsampling, aq_strength, "ycbcr",
+                False, trellis_lambda, metrics, size_mode, size_pool, q_chunk)
+                for k, i in enumerate(mine)]
+            # Counted behind the images' own jobs: the runner keeps the sizes,
+            # not the bytes.
+            encodes += [(i, size_pool.submit(_lengths, pending))
+                        for i, (_, _, pending) in zip(mine, rows) if pending]
             with span("ce.ladder.fetch"):
-                chunk = fetch_scores({k: torch.stack([s[k].to(devices[0]) for s, _ in rows])
+                chunk = fetch_scores({k: torch.stack([s[k].to(devices[0]) for s, _, _ in rows])
                                       for k in rows[0][0]})
                 if size_mode == "device":
                     chunk["_stats"] = torch.stack([st.to(devices[0])
-                                                   for _, st in rows]).cpu().numpy()
+                                                   for _, st, _ in rows]).cpu().numpy()
             if multihost:
                 chunk = all_gather_host(mesh, chunk)
             for k, v in chunk.items():
@@ -195,9 +171,9 @@ def sweep_corpus_ladders(
                     packed = chunk["_stats"][:real].reshape(real * n_q, -1)
                     sizes[start:start + real] = np.reshape(
                         _jr.size_estimates_from_packed(packed), (real, n_q))
-        for i, futures in encodes:
+        for i, counted in encodes:
             with span("ce.ladder.entropy_wait"):
-                sizes[i] = [f.result() for f in futures]
+                sizes[i] = counted.result()
 
     return CorpusLadders(
         qualities=[float(q) for q in qualities],

@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..engine.scoring import resolve_device
+from ..device import resolve_device
 from . import spatial as _spatial
 
 METRICS = ("psnr", "ssimulacra2", "dssim", "butteraugli")

@@ -227,7 +227,7 @@ def test_codec_iter_sweep_and_baseline_save_show(corpus, tmp_path, capsys):
     assert missing[0].rc == missing[1].rc == 1 and missing[1].out == missing[0].out
 
 
-def test_codec_iter_device_ladder_paths_wait_for_item_6(corpus, tmp_path, capsys):
+def test_codec_iter_device_ladder_paths_equal_jax(corpus, tmp_path, capsys):
     """``tpujpeg``, ``eval --device-sweep`` and ``target`` run on the device
     JPEG ladder in both packages: the same exit codes, tables and baseline
     files; the argument errors exit 2 as in JAX."""
@@ -439,7 +439,7 @@ def test_codec_compare_run_equals_jax(corpus, tmp_path, capsys):
 
 @pytest.mark.parametrize("formats", ["jpeg", "all"])
 @pytest.mark.parametrize("cmd", ["run", "list"])
-def test_codec_compare_zenjpeg_waits_for_item_6(corpus, tmp_path, capsys, formats, cmd):
+def test_codec_compare_zenjpeg_presets_equal_jax(corpus, tmp_path, capsys, formats, cmd):
     """``--formats jpeg`` and ``all`` select zenjpeg, tpujpeg's eight
     presets, whose ladders run on the device in both packages: the same
     listing, table and reports."""
@@ -595,7 +595,7 @@ def test_codec_analyze_pipeline_equals_jax(corpus, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("spec", ["tpujpeg", "tpujpeg:xyb", "tpujpeg:trellis:444"])
-def test_codec_analyze_tpujpeg_waits_for_item_6(corpus, tmp_path, capsys, spec):
+def test_codec_analyze_tpujpeg_specs_equal_jax(corpus, tmp_path, capsys, spec):
     """``tpujpeg`` specs run in both packages: the same comparison CSV."""
     runs = run_both(capsys, tmp_path, j_analyze, t_analyze, lambda d: [
         "full-comparison", corpus, "--codec-b", spec, "--q-min", "40", "--q-max", "90",
@@ -647,7 +647,7 @@ def test_rd_calibrate_knee_geometry_equals_jax(corpus, tmp_path, capsys):
 @pytest.mark.parametrize("extra", [["--device-sweep"], ["--device-sweep", "--size-mode", "device",
                                                      "--trellis"], []],
                          ids=["device-sweep", "device-sizes-trellis", "host-ladder"])
-def test_rd_calibrate_device_sweep_waits_for_item_6(corpus, tmp_path, capsys, extra):
+def test_rd_calibrate_device_sweep_equals_jax(corpus, tmp_path, capsys, extra):
     """``--device-sweep`` without tpujpeg is an argument error (2) as in
     JAX; with ``--format tpujpeg`` (on the device ladder or through the
     codec on the host) both packages write the same calibration."""

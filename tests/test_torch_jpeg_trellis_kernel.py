@@ -237,15 +237,13 @@ def test_kernel_takes_one_qualitys_steps(card, q_shape):
 def _ladder_planes(card):
     """A 512 px image's transform and its 45-quality ladder's steps, as
     ``reconstruct_sweep`` makes them."""
-    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
-
     rng = np.random.default_rng(11)
     y, x = np.mgrid[0:512, 0:512]
     base = np.stack([x // 2, y // 2, (x + y) // 4], -1) % 256
     img = np.clip(base + rng.integers(-40, 41, base.shape), 0, 255).astype(np.uint8)
     planes = te.transform(torch.from_numpy(img).to(card), "420")
     zz = torch.from_numpy(te.ZIGZAG.astype(np.int64)).to(card)
-    q_zz = torch.from_numpy(_qtabs_for(LADDER)).to(card)[:, :, zz][:, :, None, None, :]
+    q_zz = torch.from_numpy(te.qtabs_for(LADDER)).to(card)[:, :, zz][:, :, None, None, :]
     return img, planes, q_zz
 
 
@@ -298,9 +296,7 @@ def test_reconstruct_sweep_equals_the_plain_dp(card, monkeypatch):
     """``reconstruct_sweep(trellis_lambda=0.10)`` gives the same candidates
     and int16 coefficients through K10 as through the plain DP."""
     img, _, _ = _ladder_planes(card)
-    from codec_eval_tpu_torch.engine.tpu_sweep import _qtabs_for
-
-    args = (torch.from_numpy(img).to(card), torch.from_numpy(_qtabs_for(LADDER)).to(card), 0.0)
+    args = (torch.from_numpy(img).to(card), torch.from_numpy(te.qtabs_for(LADDER)).to(card), 0.0)
     before = jpeg_trellis.trellis_dp.launches
     cands, coefs = te.reconstruct_sweep(*args, trellis_lambda=0.10)
     assert jpeg_trellis.trellis_dp.launches == before + 2

@@ -85,6 +85,29 @@ def test_mixed_size_modules_import_no_jax(module):
     assert [m for m in _imports(path) if _forbidden(m)] == []
 
 
+def _absolute_imports(path: Path):
+    """Every module ``path`` imports, relative imports made absolute."""
+    package = ["codec_eval_tpu_torch", *path.parent.relative_to(PACKAGE).parts]
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                base = ".".join(package[:len(package) - node.level + 1] + ([base] if base else []))
+            yield from ([base] if node.module else [f"{base}.{a.name}" for a in node.names])
+
+
+def test_kernels_and_metrics_import_nothing_from_the_engine():
+    """The layers below the engine take nothing from it, at module level or
+    inside a function (the device comes from ``codec_eval_tpu_torch.device``)."""
+    files = sorted(f for d in ("kernels", "metrics") for f in (PACKAGE / d).rglob("*.py"))
+    assert len(files) > 20
+    engine = "codec_eval_tpu_torch.engine"
+    bad = [(str(f.relative_to(PACKAGE)), m) for f in files for m in _absolute_imports(f)
+           if m == engine or m.startswith(engine + ".")]
+    assert bad == []
+
 def test_parallel_exports_mesh_and_corpus_runner_only():
     import codec_eval_tpu_torch.parallel as par
 

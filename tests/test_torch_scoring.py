@@ -24,7 +24,7 @@ import codec_eval_tpu as jce
 import codec_eval_tpu_torch as port
 from codec_eval_tpu.engine.scoring import _build_chunk_scorer, _build_precompute
 from codec_eval_tpu_torch import interop
-from codec_eval_tpu_torch.engine.scoring import fetch_scores, score_chunk
+from codec_eval_tpu_torch.engine.scoring import fetch_scores, metric_config, score_chunk
 from codec_eval_tpu_torch.kernels import dssim as td
 
 H, W = 48, 64
@@ -116,6 +116,14 @@ def test_jax_reference_through_interop(pair):
     assert sorted(got) == sorted(want)
     _assert_scores(got, want, len(cands))
 
+
+def test_metric_config_takes_the_scorer_names_and_rejects_others():
+    """The one metric vocabulary of the scorer's callers (the device ladder,
+    ``score_jpeg_files``): each name of ``METRICS`` turns on its metric."""
+    assert metric_config(("psnr", "ssimulacra2")) == port.MetricConfig(psnr=True, ssimulacra2=True)
+    assert metric_config(port.engine.scoring.METRICS) == port.MetricConfig.all()
+    with pytest.raises(ValueError, match=r"unknown metrics \['ssim2'\]"):
+        metric_config(("ssimulacra2", "ssim2"))
 
 def test_scorer_caches_reference_by_content(pair):
     ref, cands = pair
