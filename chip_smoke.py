@@ -2974,7 +2974,7 @@ def mh_masked(mesh, data: dict) -> dict:
 
     per_pair, means = par.sharded_masked_score_fn(mesh)(
         par.shard_batch(mesh, data["masked_refs"]), par.shard_batch(mesh, data["masked_dists"]),
-        data["masked_hw"])
+        par.shard_batch(mesh, data["masked_hw"]))
     return {f"masked_{k}": v.cpu().numpy() for k, v in {**per_pair, **means}.items()}
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 import zlib
-from typing import Dict, Sequence, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -120,19 +120,52 @@ def _check_candidates(candidates_u8: Candidates, reference_u8: np.ndarray) -> No
             )
 
 
-class _Staging:
-    """One host buffer that the candidates of a batch go through to reach
-    the device: each (H, W, 3) candidate is copied into it as it is (one
-    contiguous copy each), the whole (N, H, W, 3) prefix goes to the device
-    in one copy, and the device makes it planar.  For a CUDA device the
-    buffer is page-locked and the copy asynchronous; the next batch waits
-    for that copy to end before it writes.  The buffer grows to the largest
-    batch staged and is reused by every smaller one.  One caller at a time."""
+class HostSlot:
+    """One reused host buffer that batches go through to reach their
+    devices, page-locked when ``pinned`` (a CUDA device among them).
+    ``take`` waits for the copies out of the buffer that ``copied`` last
+    recorded, grows the buffer to the batch when it is smaller, and hands
+    out its prefix; the caller writes it, issues its ``non_blocking``
+    copies, then calls ``copied`` with their devices.  On the CPU nothing
+    waits.  ``<counter>.buffer_alloc`` counts a growth and
+    ``<counter>.buffer_reuse`` a reuse.  One caller at a time."""
+
+    def __init__(self, pinned: bool, counter: str):
+        self.pinned = pinned
+        self.counter = counter
+        self._buf = torch.empty(0, dtype=torch.uint8)
+        self._copied: list = []  # CUDA events after the last copies out of the buffer
+
+    def take(self, nbytes: int) -> Tuple[torch.Tensor, bool]:
+        """(the buffer's first ``nbytes`` as flat u8, whether it grew)."""
+        for event in self._copied:
+            event.synchronize()
+        self._copied = []
+        grew = self._buf.numel() < nbytes
+        if grew:
+            self._buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+        count(f"{self.counter}.buffer_alloc" if grew else f"{self.counter}.buffer_reuse")
+        return self._buf[:nbytes], grew
+
+    def copied(self, devices) -> None:
+        """Mark the copies just issued to ``devices`` as the buffer's last."""
+        for device in {d for d in devices if d.type == "cuda"}:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            self._copied.append(event)
+
+
+class _Staging(HostSlot):
+    """The scorer's slot: each (H, W, 3) candidate of a batch is copied into
+    the buffer as it is (one contiguous copy each), the whole (N, H, W, 3)
+    prefix goes to the device in one copy, and the device makes it planar.
+    For a CUDA device the buffer is page-locked and the copy asynchronous;
+    the next batch waits for that copy to end before it writes.  The buffer
+    grows to the largest batch staged and is reused by every smaller one."""
 
     def __init__(self, device: torch.device):
+        super().__init__(pinned=device.type == "cuda", counter="staging")
         self.device = device
-        self._buf = torch.empty(0, dtype=torch.uint8)
-        self._copied = None  # a CUDA event after the last copy out of the buffer
 
     def stage(self, candidates_u8: Candidates, frame: tuple) -> torch.Tensor:
         """(N, H, W, 3) u8 or N (H, W, 3) u8 host candidates of shape
@@ -140,24 +173,14 @@ class _Staging:
         with span("ce.scorer.stage"):
             shape = (len(candidates_u8), *frame)
             nbytes = math.prod(shape)
-            if self._copied is not None:
-                self._copied.synchronize()
-            if self._buf.numel() < nbytes:
-                self._buf = torch.empty(nbytes, dtype=torch.uint8,
-                                        pin_memory=self.device.type == "cuda")
-                count("staging.buffer_alloc")
-                count("staging.host_bytes", nbytes)
-            else:
-                count("staging.buffer_reuse")
-                count("staging.host_bytes", 0)
-            host = self._buf[:nbytes].view(shape)
+            flat, grew = self.take(nbytes)
+            count("staging.host_bytes", nbytes if grew else 0)
+            host = flat.view(shape)
             view = host.numpy()
             for i, candidate in enumerate(candidates_u8):
                 np.copyto(view[i], candidate)
             nhwc = host.to(self.device, non_blocking=True)
-            if self.device.type == "cuda":
-                self._copied = torch.cuda.Event()
-                self._copied.record(torch.cuda.current_stream(self.device))
+            self.copied([self.device])
             return nhwc.permute(0, 3, 1, 2).contiguous()
 
 

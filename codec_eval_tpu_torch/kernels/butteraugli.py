@@ -382,6 +382,15 @@ MaskTerm = Callable[[PsychoImage, torch.Tensor, tuple], torch.Tensor]
 # ----------------------------------------------------------------- diffmap
 
 
+@functools.lru_cache(maxsize=None)
+def _band_weights(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_WMUL[3:6]`` and ``_WMUL[6:9]`` as f32 (3, 1, 1) planes on
+    ``device``: views of one tensor, copied there once (a copy per call is a
+    pageable one, which holds the host until the device's queue drains)."""
+    w = torch.tensor(_WMUL[3:9], dtype=torch.float32, device=device)[:, None, None]
+    return w[:3], w[3:]
+
+
 def _diffmap_psycho(
     pi0: PsychoImage,
     pi1: PsychoImage,
@@ -406,13 +415,12 @@ def _diffmap_psycho(
         pi0.hf[..., 1, :, :], pi1.hf[:, 1], float(w1 * a), float(w1 / a)
     )
     d_mf = pi0.mf - pi1.mf
-    wmf = torch.tensor(_WMUL[3:6], dtype=torch.float32, device=d_mf.device)[:, None, None]
+    wmf, wlf = _band_weights(d_mf.device)
     ac_mf = wmf * d_mf * d_mf
     ac0 = ac0 + ac_mf[:, 0]
     ac1 = ac1 + ac_mf[:, 1]
     ac2 = torch.zeros_like(ac0) + ac_mf[:, 2]
     d_lf = pi0.lf - pi1.lf
-    wlf = torch.tensor(_WMUL[6:9], dtype=torch.float32, device=d_lf.device)[:, None, None]
     dc = wlf * d_lf * d_lf
 
     _b0, maskval, dc_maskval = mask_pre

@@ -364,26 +364,33 @@ def bucket_shapes(
     return [(-(-h // g) * g, -(-w // g) * g) for h, w in shapes]
 
 
-def _bucketed_chunks(pairs, granularity: int, batch: int):
-    """Group mixed-size pairs into padded shape buckets and yield chunk
-    batches: (chunk_indices, refs, dists, valid_hw) as numpy.  The short
-    tail of a bucket that spans several chunks is padded to ``batch`` by
-    repeating its last pair, as the JAX package keeps one compiled program
-    per bucket; the repeats are not in ``chunk_indices``."""
+def bucket_plan(pairs, granularity: int, batch: int):
+    """Group mixed-size pairs into padded shape buckets and yield their
+    chunks: (chunk_indices, rows, (h_pad, w_pad)), ``rows`` the pair index
+    of each of the chunk's batch rows.  The short tail of a bucket that
+    spans several chunks is padded to ``batch`` by repeating its last pair,
+    as the JAX package keeps one compiled program per bucket; the repeats
+    are in ``rows`` and not in ``chunk_indices``."""
     assignments = bucket_shapes([p[0].shape[:2] for p in pairs], granularity)
     groups: dict = {}
     for i, shape in enumerate(assignments):
         groups.setdefault(shape, []).append(i)
-    for (hp, wp), idxs in groups.items():
+    for frame, idxs in groups.items():
         for start in range(0, len(idxs), batch):
             chunk = idxs[start : start + batch]
             n = len(chunk)
             pad_n = batch if n < batch and len(idxs) > batch else n
-            rows = chunk + [chunk[-1]] * (pad_n - n)
-            refs = np.stack([pad_to_bucket(pairs[i][0], hp, wp) for i in rows])
-            dists = np.stack([pad_to_bucket(pairs[i][1], hp, wp) for i in rows])
-            hw = np.array([pairs[i][0].shape[:2] for i in rows], np.int32)
-            yield chunk, refs, dists, hw
+            yield chunk, chunk + [chunk[-1]] * (pad_n - n), frame
+
+
+def _bucketed_chunks(pairs, granularity: int, batch: int):
+    """``bucket_plan``'s chunks as padded batches: (chunk_indices, refs,
+    dists, valid_hw) as numpy."""
+    for chunk, rows, (hp, wp) in bucket_plan(pairs, granularity, batch):
+        refs = np.stack([pad_to_bucket(pairs[i][0], hp, wp) for i in rows])
+        dists = np.stack([pad_to_bucket(pairs[i][1], hp, wp) for i in rows])
+        hw = np.array([pairs[i][0].shape[:2] for i in rows], np.int32)
+        yield chunk, refs, dists, hw
 
 
 def _fused_masked_all(refs_pad: torch.Tensor, dists_pad: torch.Tensor, valid_hw) -> dict:
@@ -449,6 +456,7 @@ __all__ = [
     "dssim_masked",
     "butteraugli_masked",
     "psnr_masked",
+    "bucket_plan",
     "bucket_shapes",
     "score_mixed_sizes",
     "score_mixed_sizes_all",

@@ -13,6 +13,7 @@ single-pair form, as the JAX package's ``scale_features_pallas`` route.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -99,9 +100,17 @@ def features_against_reference(
         ref, torch.movedim(srgb_u8_to_linear(dist_u8), -1, 0).contiguous(), windows)
 
 
+@functools.lru_cache(maxsize=None)
+def _weights(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The 108 feature weights on ``device``, copied there once: a copy per
+    call would be a pageable one, which holds the host until the device's
+    queue drains."""
+    return torch.as_tensor(W.WEIGHTS_V21, dtype=dtype, device=device)
+
+
 def score_from_features(features: torch.Tensor) -> torch.Tensor:
     """(..., 108) features -> SSIMULACRA2 score in (-inf, 100]."""
-    weights = torch.as_tensor(W.WEIGHTS_V21, dtype=features.dtype, device=features.device)
+    weights = _weights(features.device, features.dtype)
     s = torch.sum(weights * torch.abs(features), dim=-1) * W.SCALE_FACTOR
     v = (W.CUBIC_A * s * s + W.CUBIC_B * s + W.CUBIC_C) * s
     return torch.where(

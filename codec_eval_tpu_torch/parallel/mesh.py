@@ -95,9 +95,9 @@ def _split_local(mesh: Mesh, batch: np.ndarray, spatial: bool) -> list:
 
 
 def shard_batch(mesh: Mesh, batch: np.ndarray, spatial: bool = False) -> list:
-    """Place a host (N, H, W, 3) batch on the mesh: split over the batch
-    axis, one tensor per batch row of devices, N divisible by the axis
-    size.  With ``spatial`` each row's share is cut into row bands over the
+    """Place a host (N, ...) batch on the mesh, such as (N, H, W, 3) images
+    or their (N, 2) true dims: split over the batch axis, one tensor per
+    batch row of devices, N divisible by the axis size.  With ``spatial`` each row's share is cut into row bands over the
     space axis (``parallel/spatial.py``).  On a global mesh every process
     passes the same whole batch and keeps its own contiguous slice."""
     return _split_local(mesh, _local_part(mesh, batch), spatial)
@@ -193,10 +193,10 @@ def sharded_masked_score_fn(mesh: Mesh):
     """The (cached) scoring step for mixed-size pairs padded to one bucket.
 
     Returns ``step(refs, dists, valid_hw) -> (per_pair, aggregates)``, where
-    refs and dists are ``shard_batch`` shards of (N, H_pad, W_pad, 3) u8
-    padded with ``kernels.masked.pad_to_bucket`` and valid_hw the (N, 2)
-    host array of true dims (of the batch that ``shard_batch`` was given:
-    on a global mesh, the whole batch); all four masked metrics
+    refs, dists and valid_hw are ``shard_batch`` shards of (N, H_pad, W_pad,
+    3) u8 pairs padded with ``kernels.masked.pad_to_bucket`` and of their
+    (N, 2) int true dims (the corpus runner stages the three through its
+    page-locked slots instead); all four masked metrics
     (``kernels/masked.py``), one batch per shard.
     """
     key = ("masked", _mesh_cache_key(mesh))
@@ -205,13 +205,9 @@ def sharded_masked_score_fn(mesh: Mesh):
         return cached
     from ..kernels.masked import _fused_masked_all
 
-    def step(refs: list, dists: list, valid_hw: np.ndarray):
-        valid_hw = np.asarray(valid_hw)
-        if len(valid_hw) != sum(len(r) for r in refs):
-            valid_hw = _local_part(mesh, valid_hw)
-        parts = np.split(valid_hw, len(refs))
-        return _gather(mesh, [_fused_masked_all(r, d, torch.from_numpy(hw).to(r.device))
-                              for r, d, hw in zip(refs, dists, parts)])
+    def step(refs: list, dists: list, valid_hw: list):
+        return _gather(mesh, [_fused_masked_all(r, d, hw)
+                              for r, d, hw in zip(refs, dists, valid_hw)])
 
     _SCORE_FN_CACHE[key] = step
     return step

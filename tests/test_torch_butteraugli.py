@@ -8,7 +8,10 @@ the committed libjxl oracle scores.
   that covers only FIR summation order (the port's renormalized FIRs
   against the JAX CPU path's dense row-normalized operators);
 - the per-stage goldens at atol=1e-4, rtol=1e-5;
-- the libjxl oracle fixture at median <= 0.5%, p90 <= 2%, max <= 8%.
+- the libjxl oracle fixture at median <= 0.5%, p90 <= 2%, max <= 8%;
+- the diffmap's band weights: one cached tensor per device, and the golden
+  pair's batch and masked scores bit for bit those of weights built anew
+  in every call.
 """
 
 from pathlib import Path
@@ -24,6 +27,7 @@ from codec_eval_tpu.kernels.color import srgb_u8_to_linear as jax_to_linear
 from codec_eval_tpu.kernels.pallas.freqsep import bands_batch_pallas, opsin_xyb_batch_pallas
 from codec_eval_tpu.kernels.pallas.malta import malta_ac_batch_pallas
 from codec_eval_tpu_torch.kernels import butteraugli as tba
+from codec_eval_tpu_torch.kernels import masked as tm
 from codec_eval_tpu_torch.kernels.color import srgb_u8_to_linear
 from codec_eval_tpu_torch.kernels.cuda import freqsep as tfs
 from codec_eval_tpu_torch.kernels.cuda import malta as tml
@@ -192,3 +196,37 @@ def test_libjxl_oracle_gates():
     assert np.median(rel) <= 0.005
     assert np.quantile(rel, 0.9) <= 0.02
     assert rel.max() <= 0.08
+
+
+def test_band_weights_are_one_cached_tensor_per_device():
+    cpu = torch.device("cpu")
+    wmf, wlf = tba._band_weights(cpu)
+    again = tba._band_weights(cpu)
+    assert again[0] is wmf and again[1] is wlf
+    assert wmf.shape == wlf.shape == (3, 1, 1) and wmf.dtype == wlf.dtype == torch.float32
+    assert wlf.untyped_storage().data_ptr() == wmf.untyped_storage().data_ptr()
+    assert torch.equal(torch.cat([wmf, wlf]).flatten(),
+                       torch.tensor(tba._WMUL[3:9], dtype=torch.float32))
+
+
+def _fresh_band_weights(device):
+    """The weights as every diffmap built them before the cache."""
+    return (torch.tensor(tba._WMUL[3:6], dtype=torch.float32, device=device)[:, None, None],
+            torch.tensor(tba._WMUL[6:9], dtype=torch.float32, device=device)[:, None, None])
+
+
+@pytest.mark.parametrize("path", ["batch", "masked"])
+def test_cached_band_weights_leave_the_scores_bit_for_bit(ba_golden, monkeypatch, path):
+    ref, dist = ba_golden["ref_u8"], ba_golden["dist_u8"]
+
+    def score():
+        if path == "batch":
+            tref = tba.precompute_butteraugli_reference(_tlin(ref))
+            return tba.butteraugli_batch(tref, _tlin(dist[None]))
+        pad = [torch.from_numpy(tm.pad_to_bucket(x, 128, 96))[None] for x in (ref, dist)]
+        return tm.butteraugli_masked_batch(*pad, [ref.shape[:2]])
+
+    cached = score()
+    monkeypatch.setattr(tba, "_band_weights", _fresh_band_weights)
+    fresh = score()
+    assert cached.item() > 0.0 and torch.equal(cached, fresh)

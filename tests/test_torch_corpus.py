@@ -13,6 +13,12 @@
 - ``stage_pairs_sharded`` then ``score_staged`` equals the one-shot call and
   staged buckets are reusable; padding repeats on a two-device mesh are
   dropped from results and means; the masked metric filter;
+- the streamed runner (each chunk written into a reused host slot, scored,
+  and every score fetched once per call) equals, score for score, the
+  runner that padded and stacked every chunk on the host first
+  (``_one_shot`` below) and ``score_mixed_sizes_all``, over several buckets
+  and a bucket of several chunks with tail repeats, on one- and two-device
+  meshes; a second call reuses the slots;
 - the mesh: the card by default and an error without one, a space axis
   (``n_space > 1``, its row bands tested in ``tests/test_torch_spatial.py``),
   shards that split the batch, steps cached per mesh and flags.
@@ -27,6 +33,8 @@ import torch
 
 from codec_eval_tpu import parallel as jp
 from codec_eval_tpu_torch import parallel as tp
+from codec_eval_tpu_torch.kernels.masked import _bucketed_chunks, score_mixed_sizes_all
+from codec_eval_tpu_torch.utils import profiling
 
 METRICS = ("ssimulacra2", "dssim", "butteraugli", "psnr")
 RTOL = {"ssimulacra2": 1e-5, "dssim": 1e-5, "psnr": 1e-5, "butteraugli": 5e-4}
@@ -117,16 +125,99 @@ def test_masked_buckets_are_scored_in_chunks(n_dev, batch):
     pairs = _pairs(seed=6, shapes=((32, 32), (30, 31), (17, 29), (32, 20), (25, 32)))
     mesh, chunk = _cpu_mesh(n_dev), batch * n_dev
     staged = tp.stage_pairs_sharded(pairs, mesh=mesh, masked=True, granularity=32, batch=batch)
-    assert [ix for ix, _, _, _ in staged.buckets] == [
+    assert [c.indices for c in staged.chunks] == [
         list(range(5))[i : i + chunk] for i in range(0, 5, chunk)
     ]
-    assert all(sum(len(r) for r in refs) == chunk for _, refs, _, _ in staged.buckets)
+    assert all(len(c.rows) == chunk and c.frame == (32, 32) for c in staged.chunks)
     got = tp.score_staged(staged)
     whole = tp.score_pairs_sharded(pairs, mesh=_cpu_mesh(), masked=True, granularity=32)
     assert len(got.per_pair) == 5
     for g, w in zip(got.per_pair, whole.per_pair):
         for k in METRICS:
             assert g[k] == pytest.approx(w[k], rel=1e-5), (k, g, w)
+
+
+# Three buckets at granularity 32: 32 x 32 (five pairs: at two per device,
+# chunks of two and a tail of one padded by a repeat), 32 x 64 (two) and
+# 64 x 32 (one); the exact path has one shape twice.
+STREAM_SHAPES = ((32, 32), (30, 31), (24, 40), (17, 29), (40, 24), (32, 20), (25, 32),
+                 (24, 40))
+
+
+def _one_shot(pairs, mesh, masked, batch):
+    """The runner before streaming: each chunk padded and stacked on the
+    host (``_bucketed_chunks``; one batch per exact shape), padded to the
+    mesh's batch axis, copied with ``shard_batch`` and scored, chunk after
+    chunk: per-pair {metric: score}."""
+    n_batch = mesh.devices.shape[0]
+    if masked:
+        step, chunks = tp.sharded_masked_score_fn(mesh), _bucketed_chunks(pairs, 32, batch * n_batch)
+    else:
+        step, groups = tp.sharded_score_fn(mesh), {}
+        for i, (ref, _) in enumerate(pairs):
+            groups.setdefault(ref.shape, []).append(i)
+        chunks = [(ix, np.stack([pairs[i][0] for i in ix]), np.stack([pairs[i][1] for i in ix]),
+                   None) for ix in groups.values()]
+    out = [None] * len(pairs)
+    for indices, refs, dists, hw in chunks:
+        rep = -len(refs) % n_batch
+        refs, dists = (np.concatenate([a, np.repeat(a[-1:], rep, 0)]) for a in (refs, dists))
+        args = (tp.shard_batch(mesh, refs), tp.shard_batch(mesh, dists))
+        if masked:
+            args += (tp.shard_batch(mesh, np.concatenate([hw, np.repeat(hw[-1:], rep, 0)])),)
+        scores, _ = step(*args)
+        for j, i in enumerate(indices):
+            out[i] = {k: float(v[j]) for k, v in scores.items()}
+    return out
+
+
+@pytest.mark.parametrize("n_dev", [1, 2])
+@pytest.mark.parametrize("masked", [False, True], ids=["exact", "masked"])
+def test_streamed_scores_equal_the_one_shot_path(masked, n_dev):
+    pairs = _pairs(seed=7, shapes=STREAM_SHAPES)
+    mesh = _cpu_mesh(n_dev)
+    staged = tp.stage_pairs_sharded(pairs, mesh=mesh, masked=masked, granularity=32, batch=2)
+    if masked:  # the 32 x 32 bucket's last chunk: one pair and its repeats
+        assert len(staged.chunks) == (5 if n_dev == 1 else 4)
+        assert [(len(c.indices), len(c.rows)) for c in staged.chunks
+                if c.frame == (32, 32)][-1] == (1, 2 * n_dev)
+    got = tp.score_staged(staged)
+    want = _one_shot(pairs, mesh, masked, batch=2)
+    assert got.per_pair == want
+    assert tp.score_staged(staged).per_pair == want
+    if masked and n_dev == 1:
+        whole = score_mixed_sizes_all(pairs, granularity=32, batch=2, device="cpu")
+        assert got.per_pair == [{k: float(whole[k][i]) for k in METRICS}
+                                for i in range(len(pairs))]
+
+
+def test_a_second_call_reuses_the_runner_slots():
+    """The runner's two host slots belong to the mesh's devices: a second
+    call on another mesh object of the same devices allocates nothing; a
+    larger chunk grows the slot it lands in; the CPU's slots are not
+    page-locked.  Two chunks of three rows: the 32 x 32 bucket and the
+    32 x 64 one."""
+    pairs = _pairs(seed=8, shapes=((32, 32), (30, 31), (24, 40)))
+    kw = dict(masked=True, granularity=32, batch=1)
+
+    def counted(ps):
+        profiling.reset_counters()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            tp.score_pairs_sharded(ps, mesh=_cpu_mesh(3), **kw)
+        return profiling.counters()
+
+    first = counted(pairs)
+    assert set(first) <= {"runner.buffer_alloc", "runner.buffer_reuse"}
+    assert sum(first.values()) == 2
+    assert counted(pairs) == {"runner.buffer_reuse": 2}
+    big = _pairs(seed=9, shapes=((90, 70),))
+    grown = counted(big + pairs)
+    assert grown["runner.buffer_alloc"] >= 1 and sum(grown.values()) == 3
+    from codec_eval_tpu_torch.parallel.corpus_runner import _slots
+
+    _, slots = _slots(_cpu_mesh(3))
+    assert [s.pinned for s in slots] == [False, False]
+    profiling.reset_counters()
 
 
 def test_masked_metric_filter_matches_jax():

@@ -109,7 +109,7 @@ def run_steps(mesh, spatial_mesh, pid: int, procs: int, multihost: bool) -> dict
                                            tp.shard_batch(mesh, dists)))
     mrefs, mdists, hw = masked_bucket()
     out["masked"] = _host(*tp.sharded_masked_score_fn(mesh)(
-        tp.shard_batch(mesh, mrefs), tp.shard_batch(mesh, mdists), hw))
+        tp.shard_batch(mesh, mrefs), tp.shard_batch(mesh, mdists), tp.shard_batch(mesh, hw)))
     srefs, sdists = spatial_pairs()
     if spatial_mesh is None:
         out["spatial"] = _host(*step(tp.shard_batch(mesh, srefs), tp.shard_batch(mesh, sdists)))

@@ -3,7 +3,9 @@
 K1's plain version (``scale_features_plain``, the CPU path of the kernel
 wrapper) is held to the JAX ``_scale_features`` at rtol=1e-5, atol=1e-6;
 scores to the JAX batch scorer at rtol=1e-5, atol=1e-4; the per-stage
-goldens at 1e-5.
+goldens at 1e-5.  The feature weights are one cached tensor per (device,
+dtype), and the golden pair's batch and masked scores are bit for bit
+those of weights built anew in every call.
 """
 
 import importlib
@@ -19,6 +21,8 @@ from codec_eval_tpu.kernels.blur import blur_separable as jax_blur
 from codec_eval_tpu.kernels.ssimulacra2 import _scale_features as jax_scale_features
 from codec_eval_tpu.kernels.ssimulacra2 import precompute_reference as jax_precompute
 from codec_eval_tpu.kernels.ssimulacra2 import ssimulacra2_batch as jax_batch
+from codec_eval_tpu_torch.kernels import masked as tm
+from codec_eval_tpu_torch.kernels import ssimulacra2_weights as W
 from codec_eval_tpu_torch.kernels.cuda import scale_features as tsf
 
 ts2 = importlib.import_module("codec_eval_tpu_torch.kernels.ssimulacra2")
@@ -112,3 +116,33 @@ def test_features_and_score_golden(golden):
     assert score == pytest.approx(float(golden["score"]), abs=1e-3)
     batch = ts2.ssimulacra2_batch_pre(ref, ref_u8, dist[None])
     assert float(batch[0]) == pytest.approx(float(golden["score"]), abs=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_feature_weights_are_one_cached_tensor_per_device_and_dtype(dtype):
+    cpu = torch.device("cpu")
+    weights = ts2._weights(cpu, dtype)
+    assert ts2._weights(cpu, dtype) is weights
+    assert weights.dtype == dtype and weights.device == cpu
+    assert torch.equal(weights, torch.as_tensor(W.WEIGHTS_V21, dtype=dtype))
+    other = torch.float64 if dtype == torch.float32 else torch.float32
+    assert ts2._weights(cpu, other) is not weights
+
+
+@pytest.mark.parametrize("path", ["batch", "masked"])
+def test_cached_weights_leave_the_scores_bit_for_bit(golden, monkeypatch, path):
+    ref, dist = golden["ref_u8"], golden["dist_u8"]
+
+    def score():
+        if path == "batch":
+            ref_u8 = torch.from_numpy(ref)
+            return ts2.ssimulacra2_batch_pre(ts2.precompute_reference(ref_u8), ref_u8,
+                                             torch.from_numpy(dist)[None])
+        pad = [torch.from_numpy(tm.pad_to_bucket(x, 128, 96))[None] for x in (ref, dist)]
+        return tm.ssimulacra2_masked_batch(*pad, [ref.shape[:2]])
+
+    cached = score()
+    monkeypatch.setattr(ts2, "_weights", lambda device, dtype: torch.as_tensor(
+        W.WEIGHTS_V21, dtype=dtype, device=device))
+    fresh = score()
+    assert cached.item() < 100.0 and torch.equal(cached, fresh)

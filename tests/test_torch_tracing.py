@@ -7,7 +7,9 @@ session records on the calling thread.
 - Under the profiler, ``evaluate_image``, ``assert_quality``,
   ``score_ladder`` and the corpus runner emit their spans, nested under
   their call's top span, and count the staging buffer's allocations and
-  reuses, its bytes and reference precomputes.
+  reuses, its bytes and reference precomputes; the corpus runner stages
+  and issues each chunk under its own spans, fetches once per call and
+  counts its host slots' allocations and reuses.
 - ``device_trace``'s Chrome trace holds the spans.
 - The span form is not a user annotation, so the profiler gives it no
   range on the device timeline.
@@ -219,25 +221,37 @@ def test_score_ladder_spans_and_counts():
 def test_corpus_runner_spans_one_bucket_and_fetch_per_chunk(masked):
     # Masked (granularity 32, two pairs per chunk): a 32 x 32 bucket of
     # three pairs (two chunks) and a 32 x 64 bucket of one; exact shapes:
-    # one chunk per shape.
+    # one chunk per shape.  Each chunk is staged, then issued, and the call
+    # ends with one fetch of every chunk's scores; a second call reuses the
+    # runner's two host slots, one per staged chunk.
     shapes = [(20, 30), (32, 32), (17, 29), (24, 40)]
     pairs = [(_image(k, h, w), _noisy(_image(k, h, w), 8, seed=k))
              for k, (h, w) in enumerate(shapes)]
     mesh = make_mesh(devices=[torch.device("cpu")])
-    result, spans = _traced(lambda: score_pairs_sharded(pairs, mesh=mesh, masked=masked,
-                                                        granularity=32, batch=2))
-    assert len(result.per_pair) == len(pairs)
     chunks = 3 if masked else len(shapes)
-    names = _names(spans)
-    assert names[:2] == ["ce.runner.score_pairs", "ce.runner.stage"]
-    assert names.count("ce.runner.bucket") == chunks and names.count("ce.runner.fetch") == chunks
-    assert names.count("ce.masked.butteraugli") == (chunks if masked else 0)
-    (inner,) = _inside(spans, "ce.runner.score_pairs")
-    assert inner == names[1:]
-    if masked:
-        assert _inside(spans, "ce.runner.bucket") == [
-            ["ce.masked.ssimulacra2", "ce.masked.dssim", "ce.masked.butteraugli",
-             "ce.masked.psnr"]] * chunks
+    for call in range(2):
+        profiling.reset_counters()
+        result, spans = _traced(lambda: score_pairs_sharded(pairs, mesh=mesh, masked=masked,
+                                                            granularity=32, batch=2))
+        assert len(result.per_pair) == len(pairs)
+        names = _names(spans)
+        assert [n for n in names if n.startswith("ce.runner.")] == (
+            ["ce.runner.score_pairs"] + ["ce.runner.stage", "ce.runner.bucket"] * chunks
+            + ["ce.runner.fetch"])
+        assert names.count("ce.masked.butteraugli") == (chunks if masked else 0)
+        (inner,) = _inside(spans, "ce.runner.score_pairs")
+        assert inner == names[1:]
+        assert _inside(spans, "ce.runner.stage") == [[]] * chunks
+        if masked:
+            assert _inside(spans, "ce.runner.bucket") == [
+                ["ce.masked.ssimulacra2", "ce.masked.dssim", "ce.masked.butteraugli",
+                 "ce.masked.psnr"]] * chunks
+        got = profiling.counters()
+        if call:
+            assert got == {"runner.buffer_reuse": chunks}
+        else:
+            assert set(got) <= {"runner.buffer_alloc", "runner.buffer_reuse"}
+            assert sum(got.values()) == chunks
 
 
 def test_device_trace_writes_the_spans(tmp_path):
